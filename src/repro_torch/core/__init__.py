@@ -1,0 +1,58 @@
+"""The compressed-TM core of the port: the dense model and its oracle
+(tm.py), packed-word helpers (bits.py) and the include-only instruction
+stream (compress.py).  Training, booleanization and the stream
+interpreter are not ported yet."""
+
+from .bits import from_u32, lshr, popcount, to_u32, wrap_i32
+from .compress import (
+    CompressedModel,
+    DecodedPlan,
+    decode,
+    decode_to_plan,
+    decode_weights,
+    encode,
+    validate_roundtrip,
+)
+from .tm import (
+    TMConfig,
+    batch_class_sums,
+    batch_class_sums_weighted,
+    class_sums,
+    clause_outputs,
+    clause_polarities,
+    include_actions,
+    literals,
+    pack_literals,
+    packed_class_sums,
+    predict,
+    state_from_actions,
+    unpack_bits,
+)
+
+__all__ = [
+    "CompressedModel",
+    "DecodedPlan",
+    "TMConfig",
+    "batch_class_sums",
+    "batch_class_sums_weighted",
+    "class_sums",
+    "clause_outputs",
+    "clause_polarities",
+    "decode",
+    "decode_to_plan",
+    "decode_weights",
+    "encode",
+    "from_u32",
+    "include_actions",
+    "literals",
+    "lshr",
+    "pack_literals",
+    "packed_class_sums",
+    "popcount",
+    "predict",
+    "state_from_actions",
+    "to_u32",
+    "unpack_bits",
+    "validate_roundtrip",
+    "wrap_i32",
+]

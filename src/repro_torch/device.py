@@ -1,0 +1,37 @@
+"""Where the port runs: one rule for every entry point.
+
+``Accelerator``, ``TMServer`` and ``make_engine`` run on the CUDA card
+unless the caller asks for the CPU with ``device="cpu"``.  With no card
+and no explicit ``"cpu"`` they raise: the port never falls back to the
+CPU on its own, so a run that was meant for the card cannot silently
+measure the CPU instead.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the current CUDA device (raises without one);
+    ``"cpu"`` / ``"cuda"`` / ``"cuda:N"`` / a ``torch.device`` -> itself,
+    with a CUDA index filled in.  Any other device type raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "port on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(
+            f"unsupported device {dev}; the port runs on 'cuda' or 'cpu'"
+        )
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,0 +1,30 @@
+"""Popcount-bitplane inference: host program build (ops), the CUDA
+kernel's wrapper and plain twin (kernel), and a sequential oracle (ref)."""
+
+from .kernel import (
+    bit_transpose32,
+    popcount_reduce,
+    tm_popcount,
+    tm_popcount_plain,
+)
+from .ops import (
+    clause_ends,
+    pack_class_masks,
+    pack_class_masks_weighted,
+    plan_to_popcount_operands,
+    tm_popcount_class_sums,
+)
+from .ref import tm_popcount_ref
+
+__all__ = [
+    "bit_transpose32",
+    "clause_ends",
+    "pack_class_masks",
+    "pack_class_masks_weighted",
+    "plan_to_popcount_operands",
+    "popcount_reduce",
+    "tm_popcount",
+    "tm_popcount_class_sums",
+    "tm_popcount_plain",
+    "tm_popcount_ref",
+]

@@ -1,0 +1,270 @@
+"""Popcount-bitplane inference over the decoded plan: the CUDA kernel's
+wrapper and its plain PyTorch twin.
+
+The function is that of ``repro.kernels.tm_popcount.kernel``: per
+include, ``acc &= lits[lit_idx[t]]``; at a clause's last include
+(``last_flag == 1``) the packed clause word is emitted and ``acc``
+resets; emitted words are bit-transposed in 32x32 tiles and
+
+    sums[m, 32w+b] = sum_p (popc(T & pos[p,m,c]) - popc(T & neg[p,m,c])) << p
+
+against the polarity-bank bitplanes (``p`` only for 3-D weighted masks).
+
+``tm_popcount`` is the one entry point.  On CPU tensors it runs
+``tm_popcount_plain``; on CUDA tensors it launches the Hopper kernel of
+``csrc/tm_popcount.cu`` (two launches: clause words, then the reduction)
+or raises; there is no fallback between the two.  ``launches`` counts the
+CUDA launches and nothing else.  All packed words are int32 tensors
+holding uint32 bit patterns (``core.bits``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ...core.bits import lshr, popcount
+from .. import _build
+
+# CUDA kernel launches made by tm_popcount (the plain twin never counts)
+launches = 0
+
+# (shift, mask) rounds of the 32x32 bitplane transpose (Hacker's Delight
+# 7-3, vectorized); applied to a reversed word axis so that out word b
+# holds, at bit j, bit b of input word j.
+_TRANSPOSE_ROUNDS = (
+    (16, 0x0000FFFF),
+    (8, 0x00FF00FF),
+    (4, 0x0F0F0F0F),
+    (2, 0x33333333),
+    (1, 0x55555555),
+)
+
+
+def bit_transpose32(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Transpose 32x32 bit tiles held along ``axis`` (size 32) of words.
+
+    ``out[..., b, ...]`` has bit j equal to bit b of ``x[..., j, ...]``.
+    """
+    x = torch.movedim(x, axis, -1).flip(-1)
+    lead = x.shape[:-1]
+    for s, m in _TRANSPOSE_ROUNDS:
+        y = x.reshape(*lead, 32 // (2 * s), 2, s)
+        a, b = y[..., 0, :], y[..., 1, :]
+        t = (a ^ lshr(b, s)) & m
+        x = torch.stack([a ^ t, b ^ (t << s)], dim=-2).reshape(*lead, 32)
+    return torch.movedim(x.flip(-1), -1, axis)
+
+
+def popcount_reduce(
+    emit_words: torch.Tensor,  # int32[I, W], I % 32 == 0; 0 unless emitting
+    mask_pos: torch.Tensor,  # int32[m_cap, I//32] or int32[P, m_cap, I//32]
+    mask_neg: torch.Tensor,  # same shape as mask_pos
+) -> torch.Tensor:
+    """Emit words + polarity-bank bitplanes -> int32[m_cap, W*32] sums.
+
+    2-D masks are unit-weight banks; 3-D masks are weight bitplanes,
+    combined as ``sum_b ((pop(T & pos[b]) - pop(T & neg[b])) << b)``."""
+    i, w = emit_words.shape
+    tiles = bit_transpose32(emit_words.reshape(i // 32, 32, w), axis=1)
+    # tiles[c, b, w] bit j = datapoint 32w+b's output of instruction 32c+j
+    planes = mask_pos[None] if mask_pos.dim() == 2 else mask_pos
+    negs = mask_neg[None] if mask_neg.dim() == 2 else mask_neg
+    sums = None
+    for b in range(planes.shape[0]):
+        pos = popcount(tiles[None] & planes[b][:, :, None, None])
+        neg = popcount(tiles[None] & negs[b][:, :, None, None])
+        plane = (pos - neg).sum(dim=1, dtype=torch.int32) << b  # [m, 32, W]
+        sums = plane if sums is None else sums + plane
+    return sums.transpose(1, 2).reshape(planes.shape[1], w * 32)
+
+
+def _segmented_and_scan(sel: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Inclusive AND scan over axis 0 that restarts where ``start`` is
+    True: a log-step Hillis-Steele scan whose combine ANDs only inside
+    one segment, so it is exact in log2(I) vectorized rounds."""
+    flag, val = start, sel
+    d = 1
+    while d < sel.shape[0]:
+        v = val.clone()
+        v[d:] = torch.where(flag[d:, None], val[d:], val[d:] & val[:-d])
+        f = flag.clone()
+        f[d:] = flag[d:] | flag[:-d]
+        flag, val = f, v
+        d *= 2
+    return val
+
+
+def _pad_operands(lit_idx, last_flag, mask_pos, mask_neg):
+    """Pad the instruction axis to a multiple of 32 (padding ANDs row 0
+    and never emits) and the masks to the matching chunk count."""
+    i_cap = lit_idx.shape[0]
+    i_pad = -(-i_cap // 32) * 32
+    lit_idx = F.pad(lit_idx, (0, i_pad - i_cap))
+    last_flag = F.pad(last_flag, (0, i_pad - i_cap))
+    pad_chunks = i_pad // 32 - mask_pos.shape[-1]
+    return (
+        lit_idx, last_flag,
+        F.pad(mask_pos, (0, pad_chunks)), F.pad(mask_neg, (0, pad_chunks)),
+    )
+
+
+def tm_popcount_plain(
+    lit_idx: torch.Tensor,  # int32[I_cap]
+    last_flag: torch.Tensor,  # int32[I_cap]
+    mask_pos: torch.Tensor,  # int32[(P,) m_cap, ceil(I_cap/32)]
+    mask_neg: torch.Tensor,
+    packed_lits: torch.Tensor,  # int32[L2, W]
+) -> torch.Tensor:
+    """The popcount algorithm in plain PyTorch -> int32[m_cap, W*32]: the
+    twin of ``repro``'s ``tm_popcount_xla`` (gather, segmented AND scan,
+    bit transpose, popcount), on any device."""
+    lit_idx, last_flag, mask_pos, mask_neg = _pad_operands(
+        lit_idx, last_flag, mask_pos, mask_neg
+    )
+    sel = packed_lits[lit_idx.long()]  # [I, W] literal select
+    emit = last_flag == 1
+    start = torch.cat([emit.new_ones(1), emit[:-1]])
+    acc = _segmented_and_scan(sel, start)  # packed clause outputs
+    emit_words = torch.where(emit[:, None], acc, 0)
+    return popcount_reduce(emit_words, mask_pos, mask_neg)
+
+
+def _check_operands(lit_idx, last_flag, mask_pos, mask_neg, packed_lits):
+    ops = {
+        "lit_idx": lit_idx, "last_flag": last_flag, "mask_pos": mask_pos,
+        "mask_neg": mask_neg, "packed_lits": packed_lits,
+    }
+    for name, t in ops.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.device != packed_lits.device:
+            raise ValueError(
+                f"{name} is on {t.device} but packed_lits on "
+                f"{packed_lits.device}"
+            )
+    i_cap = lit_idx.shape[0]
+    if lit_idx.dim() != 1 or last_flag.shape != lit_idx.shape or i_cap == 0:
+        raise ValueError(
+            f"lit_idx and last_flag must be equal non-empty 1-D vectors, got "
+            f"{tuple(lit_idx.shape)} and {tuple(last_flag.shape)}"
+        )
+    if mask_pos.shape != mask_neg.shape or mask_pos.dim() not in (2, 3):
+        raise ValueError(
+            f"mask_pos/mask_neg must share a [m_cap, chunks] or [P, m_cap, "
+            f"chunks] shape, got {tuple(mask_pos.shape)} and "
+            f"{tuple(mask_neg.shape)}"
+        )
+    if mask_pos.shape[-1] > -(-i_cap // 32) or 0 in mask_pos.shape:
+        raise ValueError(
+            f"masks of shape {tuple(mask_pos.shape)} do not fit "
+            f"{i_cap} instructions ({-(-i_cap // 32)} chunks)"
+        )
+    if packed_lits.dim() != 2 or 0 in packed_lits.shape:
+        raise ValueError(
+            f"packed_lits must be a non-empty [L2, W], got "
+            f"{tuple(packed_lits.shape)}"
+        )
+
+
+def tm_popcount(
+    lit_idx: torch.Tensor,
+    last_flag: torch.Tensor,
+    mask_pos: torch.Tensor,
+    mask_neg: torch.Tensor,
+    packed_lits: torch.Tensor,
+    *,
+    clause_end: Optional[torch.Tensor] = None,
+    n_clauses: Optional[int] = None,
+) -> torch.Tensor:
+    """Popcount-bitplane inference -> int32[m_cap, W*32] class sums.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel or
+    raise.  ``clause_end`` (int32, the indices where ``last_flag == 1``,
+    padded as the caller likes) with ``n_clauses`` valid entries is the
+    program-time clause table the kernel walks; it is derived from
+    ``last_flag`` when not given."""
+    _check_operands(lit_idx, last_flag, mask_pos, mask_neg, packed_lits)
+    dev = packed_lits.device
+    if dev.type == "cpu":
+        return tm_popcount_plain(
+            lit_idx, last_flag, mask_pos, mask_neg, packed_lits
+        )
+    if dev.type != "cuda":
+        raise ValueError(
+            f"tm_popcount runs on 'cpu' or 'cuda' tensors, got {dev}"
+        )
+    return _tm_popcount_cuda(
+        lit_idx, last_flag, mask_pos, mask_neg, packed_lits,
+        clause_end, n_clauses,
+    )
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("tm_popcount")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tm_popcount_clause_words.argtypes = [p, p, i, p, i, i, i, p, p]
+    lib.tm_popcount_clause_words.restype = i
+    lib.tm_popcount_reduce.argtypes = [p, p, i, p, p, i, i, i, i, p, p]
+    lib.tm_popcount_reduce.restype = i
+    lib.tm_popcount_error_string.argtypes = [i]
+    lib.tm_popcount_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err:
+        msg = lib.tm_popcount_error_string(err).decode()
+        raise RuntimeError(f"tm_popcount {what} launch failed: {msg} ({err})")
+
+
+def _tm_popcount_cuda(
+    lit_idx, last_flag, mask_pos, mask_neg, packed_lits, clause_end, n_clauses
+):
+    global launches
+    dev = packed_lits.device
+    if clause_end is None:
+        clause_end = torch.nonzero(last_flag == 1).flatten().to(torch.int32)
+        n_clauses = clause_end.numel()
+    elif n_clauses is None or not 0 <= n_clauses <= clause_end.numel():
+        raise ValueError("clause_end needs n_clauses within its length")
+    if clause_end.device != dev or clause_end.dtype != torch.int32:
+        raise ValueError("clause_end must be int32 on the operands' device")
+    tensors = (lit_idx, last_flag, mask_pos, mask_neg, packed_lits, clause_end)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("tm_popcount operands must be contiguous")
+    i_cap = lit_idx.shape[0]
+    n_chunks = -(-i_cap // 32)
+    if mask_pos.shape[-1] != n_chunks:
+        _, _, mask_pos, mask_neg = _pad_operands(
+            lit_idx, last_flag, mask_pos, mask_neg
+        )
+    planes, m_cap = (1, mask_pos.shape[0]) if mask_pos.dim() == 2 else (
+        mask_pos.shape[0], mask_pos.shape[1]
+    )
+    l2, w = packed_lits.shape
+    lib = _lib()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    emit = torch.empty((w, n_chunks * 32), dtype=torch.int32, device=dev)
+    out = torch.empty((m_cap, 32 * w), dtype=torch.int32, device=dev)
+    if n_clauses:
+        err = lib.tm_popcount_clause_words(
+            lit_idx.data_ptr(), clause_end.data_ptr(), n_clauses,
+            packed_lits.data_ptr(), l2, w, n_chunks * 32, emit.data_ptr(),
+            stream,
+        )
+        _raise_on(lib, err, "clause-words")
+        launches += 1
+    err = lib.tm_popcount_reduce(
+        emit.data_ptr(), last_flag.data_ptr(), i_cap,
+        mask_pos.data_ptr(), mask_neg.data_ptr(), planes, m_cap, n_chunks, w,
+        out.data_ptr(), stream,
+    )
+    _raise_on(lib, err, "reduce")
+    launches += 1
+    return out

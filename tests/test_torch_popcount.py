@@ -1,0 +1,249 @@
+"""Parity of the port's popcount path with the JAX reference, exact.
+
+The plain twin ``tm_popcount_plain`` and the sequential oracle
+``tm_popcount_ref`` are held to the reference's ``tm_popcount_xla`` and
+``tm_popcount_ref`` (the Pallas ``tm_popcount`` itself does not run on
+this jax), with weight planes, ragged instruction counts and padding; the
+program build (``plan_to_popcount_operands``) gives equal arrays and
+refuses the same malformed plans.  The CUDA kernel is held to the plain
+twin where a card exists (marked ``cuda``; skips itself otherwise).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import compress as jcomp
+from repro.core.tm import TMConfig as JTMConfig
+from repro.kernels.tm_popcount import kernel as jkernel
+from repro.kernels.tm_popcount import ops as jops
+from repro.kernels.tm_popcount.ref import tm_popcount_ref as jref
+from repro_torch.core import compress
+from repro_torch.core.bits import from_u32, to_u32
+from repro_torch.core.tm import TMConfig, pack_literals
+from repro_torch.kernels.tm_popcount import kernel, ops
+from repro_torch.kernels.tm_popcount.ref import tm_popcount_ref
+
+
+def _u32(rng, shape):
+    return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_bit_transpose32_matches(axis):
+    shape = [3, 5, 4]
+    shape[axis] = 32
+    x = _u32(np.random.default_rng(axis), shape)
+    got = kernel.bit_transpose32(from_u32(x), axis)
+    np.testing.assert_array_equal(
+        to_u32(got), np.asarray(jkernel.bit_transpose32(jnp.asarray(x), axis))
+    )
+    # an involution: transposing twice gives the input back
+    np.testing.assert_array_equal(to_u32(kernel.bit_transpose32(got, axis)), x)
+
+
+@pytest.mark.parametrize("planes", [None, 1, 3])
+def test_popcount_reduce_matches(planes):
+    rng = np.random.default_rng(planes or 0)
+    emit = _u32(rng, (96, 3))
+    emit[rng.random(96) < 0.6] = 0
+    lead = () if planes is None else (planes,)
+    pos, neg = _u32(rng, lead + (5, 3)), _u32(rng, lead + (5, 3))
+    got = kernel.popcount_reduce(from_u32(emit), from_u32(pos), from_u32(neg))
+    want = jkernel.popcount_reduce(
+        jnp.asarray(emit), jnp.asarray(pos), jnp.asarray(neg)
+    )
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _program(seed, M=6, C=12, F=40, weighted=False, zero_class=False):
+    rng = np.random.default_rng(seed)
+    acts = rng.random((M, C, 2 * F)) < 0.08
+    if zero_class:
+        acts[2] = False
+    w = rng.integers(1, 8, (M, C)) if weighted else None
+    jm = jcomp.encode(JTMConfig(M, C, F), acts, w)
+    tm_ = compress.encode(TMConfig(M, C, F), acts, w)
+    return rng, jm, tm_
+
+
+# (seed, weighted, weight_planes, i_cap slack, zero class)
+PROGRAMS = [
+    (0, False, None, 0, False),
+    (1, False, None, 13, True),  # ragged I_cap, padding, zero-include class
+    (2, True, None, 7, False),  # weighted: auto-sized 3-D masks
+    (3, False, 3, 40, False),  # weightless at a pinned plane depth
+    (4, True, 4, 1, True),
+]
+
+
+@pytest.mark.parametrize("seed,weighted,planes,slack,zero", PROGRAMS)
+def test_plain_and_ref_match_reference(seed, weighted, planes, slack, zero):
+    rng, jm, tm_ = _program(seed, weighted=weighted, zero_class=zero)
+    jplan, tplan = jcomp.decode_to_plan(jm), compress.decode_to_plan(tm_)
+    i_cap = tplan.n_includes + slack
+    jops_ = jops.plan_to_popcount_operands(
+        jplan, i_cap, 6, l2_cap=80, weight_planes=planes
+    )
+    tops = ops.plan_to_popcount_operands(
+        tplan, i_cap, 6, l2_cap=80, weight_planes=planes
+    )
+    for a, b in zip(tops, jops_):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    x = rng.integers(0, 2, (96, 40), dtype=np.uint8)
+    packed = pack_literals(torch.from_numpy(x))
+    li, last, mp, mn = tops
+    targs = (
+        torch.from_numpy(li), torch.from_numpy(last),
+        from_u32(mp), from_u32(mn), packed,
+    )
+    jargs = tuple(jnp.asarray(a) for a in jops_) + (jnp.asarray(to_u32(packed)),)
+    want = np.asarray(jkernel.tm_popcount_xla(*jargs))
+    np.testing.assert_array_equal(kernel.tm_popcount_plain(*targs).numpy(), want)
+    np.testing.assert_array_equal(tm_popcount_ref(*targs).numpy(), want)
+    # the wrapper on CPU tensors is the plain twin
+    np.testing.assert_array_equal(kernel.tm_popcount(*targs).numpy(), want)
+    if mp.ndim == 2:  # the reference oracle takes 2-D masks only
+        np.testing.assert_array_equal(np.asarray(jref(*jargs)), want)
+    if zero:
+        assert not want[2].any()
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_plain_matches_on_bare_operands(seed):
+    """Random operands not built from a model: arbitrary clause ends and
+    trailing includes that never emit; masks with fewer chunks than the
+    instruction count needs are padded with zeros, as the reference's
+    ``tm_popcount_xla`` pads them."""
+    rng = np.random.default_rng(seed)
+    i_cap, l2, w = 77, 20, 2
+    lit_idx = rng.integers(0, l2, i_cap).astype(np.int32)
+    last = (rng.random(i_cap) < 0.3).astype(np.int32)
+    last[-5:] = 0
+    pos, neg = _u32(rng, (4, 3)), _u32(rng, (4, 3))
+    lits = _u32(rng, (l2, w))
+    want = np.asarray(jkernel.tm_popcount_xla(
+        jnp.asarray(lit_idx), jnp.asarray(last), jnp.asarray(pos),
+        jnp.asarray(neg), jnp.asarray(lits),
+    ))
+    targs = (
+        torch.from_numpy(lit_idx), torch.from_numpy(last),
+        from_u32(pos), from_u32(neg), from_u32(lits),
+    )
+    np.testing.assert_array_equal(kernel.tm_popcount_plain(*targs).numpy(), want)
+    np.testing.assert_array_equal(tm_popcount_ref(*targs).numpy(), want)
+    np.testing.assert_array_equal(np.asarray(jref(*(
+        jnp.asarray(a) for a in (lit_idx, last, pos, neg, lits)
+    ))), want)
+    short = np.ascontiguousarray(pos[:, :2]), np.ascontiguousarray(neg[:, :2])
+    want = np.asarray(jkernel.tm_popcount_xla(
+        jnp.asarray(lit_idx), jnp.asarray(last), *map(jnp.asarray, short),
+        jnp.asarray(lits),
+    ))
+    targs = targs[:2] + tuple(map(from_u32, short)) + targs[4:]
+    np.testing.assert_array_equal(kernel.tm_popcount_plain(*targs).numpy(), want)
+    np.testing.assert_array_equal(tm_popcount_ref(*targs).numpy(), want)
+
+
+def test_class_sums_entry_matches_reference():
+    rng, jm, tm_ = _program(7, weighted=True)
+    x = rng.integers(0, 2, (64, 40), dtype=np.uint8)
+    packed = pack_literals(torch.from_numpy(x))
+    got = ops.tm_popcount_class_sums(
+        compress.decode_to_plan(tm_), packed, m_cap=8, i_cap=512
+    )
+    want = jops.tm_popcount_class_sums(
+        jcomp.decode_to_plan(jm), jnp.asarray(to_u32(packed)),
+        m_cap=8, i_cap=512, implementation="xla",
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_malformed_plans_raise_the_same():
+    _, jm, tm_ = _program(8, weighted=True)
+    jplan, tplan = jcomp.decode_to_plan(jm), compress.decode_to_plan(tm_)
+    cases = [
+        dict(m_cap=3),  # class id outside the accumulator bank
+        dict(l2_cap=10),  # literal slot outside the feature memory
+        dict(weight_planes=1),  # a weight needs more planes
+    ]
+    for case in cases:
+        kw = dict(m_cap=6, l2_cap=80, weight_planes=None)
+        kw.update(case)
+        m_cap = kw.pop("m_cap")
+        with pytest.raises(ValueError) as te:
+            ops.plan_to_popcount_operands(tplan, 512, m_cap, **kw)
+        with pytest.raises(ValueError) as je:
+            jops.plan_to_popcount_operands(jplan, 512, m_cap, **kw)
+        assert str(te.value) == str(je.value)
+
+
+def test_clause_ends_cover_every_emitting_include():
+    _, _, tm_ = _program(9)
+    li, last, _, _ = ops.plan_to_popcount_operands(
+        compress.decode_to_plan(tm_), 512, 6
+    )
+    ends = ops.clause_ends(last)
+    assert ends.dtype == np.int32
+    np.testing.assert_array_equal(ends, np.flatnonzero(last == 1))
+    assert ends[-1] == compress.decode_to_plan(tm_).n_includes - 1
+
+
+def test_wrapper_checks_operands():
+    _, _, tm_ = _program(10)
+    li, last, mp, mn = ops.plan_to_popcount_operands(
+        compress.decode_to_plan(tm_), 512, 6
+    )
+    args = [torch.from_numpy(li), torch.from_numpy(last), from_u32(mp),
+            from_u32(mn), torch.zeros((80, 2), dtype=torch.int32)]
+    bad_dtype = list(args)
+    bad_dtype[0] = bad_dtype[0].long()
+    with pytest.raises(TypeError, match="int32"):
+        kernel.tm_popcount(*bad_dtype)
+    bad_masks = list(args)
+    bad_masks[2] = bad_masks[3] = torch.zeros((6, 50), dtype=torch.int32)
+    with pytest.raises(ValueError, match="do not fit"):
+        kernel.tm_popcount(*bad_masks)
+    bad_lits = list(args)
+    bad_lits[4] = torch.zeros((80,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="packed_lits"):
+        kernel.tm_popcount(*bad_lits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_cuda_kernel_matches_plain_twin(weighted):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng, _, tm_ = _program(11, weighted=weighted, zero_class=True)
+    plan = compress.decode_to_plan(tm_)
+    li, last, mp, mn = ops.plan_to_popcount_operands(
+        plan, plan.n_includes + 9, 6, weight_planes=3 if weighted else None
+    )
+    dev = torch.device("cuda")
+    x = rng.integers(0, 2, (32 * 7, 40), dtype=np.uint8)
+    args = (
+        torch.from_numpy(li).to(dev), torch.from_numpy(last).to(dev),
+        from_u32(mp, dev), from_u32(mn, dev),
+        pack_literals(torch.from_numpy(x).to(dev)),
+    )
+    before = kernel.launches
+    got = kernel.tm_popcount(*args)
+    assert kernel.launches == before + 2
+    torch.testing.assert_close(got, kernel.tm_popcount_plain(*args), rtol=0, atol=0)
+
+
+def test_instruction_overflow_is_a_value_error_not_an_assert():
+    """The reference guards ``n_includes <= i_cap`` with ``assert`` (gone
+    under ``python -O``); the port raises ``ValueError`` with the same
+    text."""
+    _, jm, tm_ = _program(12)
+    with pytest.raises(ValueError) as te:
+        ops.plan_to_popcount_operands(compress.decode_to_plan(tm_), 8, 6)
+    with pytest.raises(AssertionError) as je:
+        jops.plan_to_popcount_operands(jcomp.decode_to_plan(jm), 8, 6)
+    assert str(te.value) == str(je.value)
