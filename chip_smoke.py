@@ -16,10 +16,21 @@ features, ~17k includes, 8192 datapoints per flush) it
      traffic, a rollback and the scheduler loop, every prediction held
      to the dense ``batch_class_sums`` oracle; the kernels' launch counts
      are zeroed just before and read just after;
+  3b. dense vs compressed (the paper's Fig 6 / Fig 9 comparison): one
+     model evaluated four ways on all 8192 rows -- ``tm_dense_class_sums``
+     (clause_eval), ``tm_matmul_class_sums`` (clause_matmul),
+     ``tm_compressed_class_sums`` (tm_interp) and the served
+     ``tm_popcount`` sums -- all ``torch.equal`` and equal to the oracle;
+     the three kernels' launch counts are zeroed just before and read
+     just after; then each is ``torch.equal`` to its plain twin at full
+     width, on a ragged shape and on a zero-include class, and is timed
+     (CUDA events, median of 30; plain twins median of 10) beside its
+     bound and, for clause_matmul, ``torch._int_mm`` on int8 operands
+     (the faster of its two layouts of the second operand);
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
-and prints a ``{"kernels": [...]}`` line, the card's name and power limit
+and prints a ``{"kernels": [...]}`` line (all four kernels), the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase exits nonzero before the result lines; so does a machine
 without CUDA, or a directory that lacks the repo's ``src/repro_torch``.
@@ -40,7 +51,16 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # non-tensor rate (67 TFLOP/s) is the highest candidate, so the bound
 # derived from it stays a lower bound on time
 PEAK_OPS_PER_S = 67e12
+PEAK_INT8_TC_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
 REPS = 30
+PLAIN_REPS = 10
+
+
+def bound(n_bytes: int, n_ops: int, peak_ops: float = PEAK_OPS_PER_S):
+    """(bound ms, what bounds it): the larger of bytes over the memory
+    rate and operations over the given peak rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def fail(msg: str) -> None:
@@ -86,7 +106,18 @@ def main() -> int:
         pack_literals,
         state_from_actions,
     )
+    from repro_torch.core import include_actions, literals
     from repro_torch.kernels import _build
+    from repro_torch.kernels.clause_eval import kernel as cek
+    from repro_torch.kernels.clause_eval.ops import tm_dense_class_sums
+    from repro_torch.kernels.clause_matmul import kernel as cmk
+    from repro_torch.kernels.clause_matmul.ops import tm_matmul_class_sums
+    from repro_torch.kernels.tm_interp import kernel as tik
+    from repro_torch.kernels.tm_interp.ops import (
+        clause_ends,
+        plan_to_operands,
+        tm_compressed_class_sums,
+    )
     from repro_torch.kernels.tm_popcount import kernel as tmk
     from repro_torch.kernels.tm_popcount.ops import plan_to_popcount_operands
 
@@ -224,6 +255,183 @@ def main() -> int:
         f"launches {main_launches}"
     )
 
+    # -- 3b. dense vs compressed: one model, four evaluations -------------
+    # the matmul twin's float32 products are exact only without TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("tf32: torch.backends.cuda.matmul.allow_tf32 = False")
+
+    def dense_actions(acts):  # TA state -> include actions, int32 on the card
+        state = state_from_actions(cfg, torch.from_numpy(acts).to(dev))
+        return include_actions(cfg, state).to(torch.int32)
+
+    actions_a, actions_z = dense_actions(acts_a), dense_actions(acts_z)
+    lits_01 = literals(torch.from_numpy(X).to(dev)).T.to(torch.int32).contiguous()
+    new_kernels = {"clause_eval": cek, "clause_matmul": cmk, "tm_interp": tik}
+    torch.cuda.synchronize()
+    for mod in new_kernels.values():
+        mod.launches = 0
+    form_fns = {  # each entry point as a user calls it -> int32[10, 8192]
+        "tm_dense_class_sums": lambda: tm_dense_class_sums(
+            actions_a, lits, n_classes=10
+        ),
+        "tm_matmul_class_sums": lambda: tm_matmul_class_sums(
+            actions_a, lits_01, n_classes=10
+        ),
+        "tm_compressed_class_sums": lambda: tm_compressed_class_sums(
+            plan_a, lits, m_cap=M_CAP, i_cap=I_CAP
+        ),
+        "served tm_popcount": lambda: torch.from_numpy(
+            np.ascontiguousarray(acc.class_sums("mnist", X).T)
+        ).to(dev),
+    }
+    forms = {name: fn() for name, fn in form_fns.items()}
+    torch.cuda.synchronize()
+    path_launches = {name: mod.launches for name, mod in new_kernels.items()}
+    for name, n in path_launches.items():
+        if n == 0:
+            fail(f"the dense-vs-compressed phase never launched {name}")
+    served_sums = forms["served tm_popcount"]
+    for name, got in forms.items():
+        if got.dtype != torch.int32 or got.shape != (10, 8192):
+            fail(f"{name} gave {got.dtype} {tuple(got.shape)}")
+        if not torch.equal(got, served_sums):
+            err = int((got - served_sums).abs().max())
+            fail(f"{name} != served tm_popcount sums (max abs err {err})")
+        if not np.array_equal(got[:, :512].T.cpu().numpy(), sums_a):
+            fail(f"{name} differs from the dense oracle on the first 512 rows")
+    print(f"dense vs compressed: {sorted(forms)} equal on 8192 rows and to "
+          f"the oracle on 512; launches {path_launches}")
+
+    A2, Az = actions_a.reshape(2000, 1568), actions_z.reshape(2000, 1568)
+
+    def interp_ops(plan, i_cap):
+        return [
+            torch.from_numpy(a).to(dev)
+            for a in plan_to_operands(plan, i_cap, m_cap=M_CAP)
+        ]
+
+    ops_a = interp_ops(plan_a, I_CAP)
+    lits37 = lits[:, :37].contiguous()
+    twin_cases = {
+        "clause_eval": (cek.clause_eval, cek.clause_eval_plain, {
+            "W=256": (A2, lits),
+            "ragged W=37": (A2, lits37),
+            "zero-include class": (Az, lits),
+        }),
+        "clause_matmul": (cmk.clause_matmul, cmk.clause_matmul_plain, {
+            "B=8192": (A2, lits_01),
+            "ragged B=8191": (A2, lits_01[:, :8191].contiguous()),
+            "zero-include class": (Az, lits_01),
+        }),
+        "tm_interp": (
+            lambda *a: tik.tm_interp(*a, m_cap=M_CAP),
+            lambda *a: tik.tm_interp_plain(*a, M_CAP), {
+                "I_cap=16928 W=256": (*ops_a, lits),
+                "ragged I_cap=16921 W=37": (*interp_ops(plan_a, 16921), lits37),
+                "zero-include class": (*interp_ops(plan_z, I_CAP), lits),
+            }),
+    }
+    new_err = {}
+    for kname, (kernel_fn, plain_fn, cases_k) in twin_cases.items():
+        new_err[kname] = 0
+        for cname, args in cases_k.items():
+            got, want = kernel_fn(*args), plain_fn(*args)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            new_err[kname] = max(new_err[kname], err)
+            if not torch.equal(got, want):
+                fail(f"{kname} kernel != plain twin on {cname}: max abs err {err}")
+            if cname == "zero-include class":
+                # class 3 of acts_z: its sum row, or its 200 clause rows
+                zero = got[3] if kname == "tm_interp" else got[600:800]
+                if bool(zero.any()):
+                    fail(f"{kname}: the zero-include class is not all zeros")
+            print(f"parity {kname} {cname}: equal, shape {tuple(got.shape)}")
+
+    # timings at full width, with each kernel's bound from these inputs;
+    # the clause table as tm_compressed_class_sums builds it, on the host
+    ends_a = torch.from_numpy(clause_ends(ops_a[1].cpu().numpy())).to(dev)
+    n_inc_a = int(ends_a[-1]) + 1
+    a_i8 = A2.to(torch.int8)
+    # the second operand of the product in both layouts: [L2][B] rows as
+    # the plain twin reads it, and [B][L2] rows (column-major [L2, B]) as
+    # the kernel's own int8 scratch holds it
+    nl_i8 = {"row-major": (1 - lits_01).to(torch.int8)}
+    nl_i8["column-major"] = nl_i8["row-major"].T.contiguous().T
+    timed = {
+        "clause_eval": (
+            lambda: cek.clause_eval(A2, lits),
+            lambda: cek.clause_eval_plain(A2, lits),
+            # each input read once, the words written once; one AND per
+            # include and batch word
+            bound(4 * (A2.numel() + lits.numel() + A2.shape[0] * lits.shape[1]),
+                  int(A2.sum()) * lits.shape[1]),
+        ),
+        "clause_matmul": (
+            lambda: cmk.clause_matmul(A2, lits_01),
+            lambda: cmk.clause_matmul_plain(A2, lits_01),
+            # the dense product: 2 operations per multiply-add
+            bound(4 * (A2.numel() + lits_01.numel()
+                       + A2.shape[0] * lits_01.shape[1]),
+                  2 * A2.numel() * lits_01.shape[1], PEAK_INT8_TC_OPS_PER_S),
+        ),
+        "tm_interp": (
+            lambda: tik.tm_interp(*ops_a, lits, m_cap=M_CAP, clause_end=ends_a),
+            lambda: tik.tm_interp_plain(*ops_a, lits, M_CAP),
+            # four operand vectors, the clause table, literals and sums;
+            # one AND per include and word, one add per clause bit
+            bound(4 * (sum(t.numel() for t in ops_a) + ends_a.numel()
+                       + lits.numel() + M_CAP * 32 * lits.shape[1]),
+                  (n_inc_a + 32 * ends_a.numel()) * lits.shape[1]),
+        ),
+    }
+    new_timings = {}
+    for kname, (kfn, pfn, (bound_ms, bound_by)) in timed.items():
+        k_ms = median_ms(kfn)
+        p_ms = median_ms(pfn, reps=PLAIN_REPS, warmup=1)
+        lib_ms = None
+        if kname == "clause_matmul":
+            # the product alone, as PyTorch's int8 GEMM computes it, in
+            # both layouts of its second operand; the faster is library_ms.
+            # The port never calls it.
+            fired = cmk.clause_matmul(A2, lits_01)
+            by_layout = {}
+            for layout, b_i8 in nl_i8.items():
+                try:
+                    viol = torch._int_mm(a_i8, b_i8)
+                except RuntimeError as e:  # a layout the library refuses
+                    print(f"torch._int_mm refuses second operand {layout}: {e}")
+                    continue
+                want = ((viol == 0) & (A2.sum(1) > 0)[:, None]).to(torch.int32)
+                if not torch.equal(want, fired):
+                    fail(f"clause_matmul disagrees with torch._int_mm ({layout})")
+                by_layout[layout] = median_ms(lambda: torch._int_mm(a_i8, b_i8))
+                print(f"time torch._int_mm, second operand {layout}: "
+                      f"{by_layout[layout]:.6f} ms")
+            if not by_layout:
+                fail("torch._int_mm took neither layout")
+            lib_ms = min(by_layout.values())
+        new_timings[kname] = (k_ms, p_ms, bound_ms, bound_by, lib_ms)
+        lib = "none" if lib_ms is None else f"{lib_ms:.6f} ms"
+        print(f"time {kname}: kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms "
+              f"(median of {PLAIN_REPS}), bound {bound_ms:.6f} ms ({bound_by}), "
+              f"library {lib}")
+    for name, fn in form_fns.items():
+        # the whole entry point: host operand build, kernel, polarity sums
+        print(f"time form {name}: {median_ms(fn, reps=PLAIN_REPS, warmup=1):.6f} "
+              f"ms (median of {PLAIN_REPS})")
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        for kfn, _, _ in timed.values():
+            for _ in range(10):
+                kfn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():  # every device kernel of the three
+        us = getattr(ev, "device_time_total", 0) / max(ev.count, 1)
+        if us > 0:
+            print(f"profile 3b: {ev.key} {us:.3f} us/launch x{ev.count}")
+
     # -- 4. timings --------------------------------------------------------
     def kernel_bound(ops, packed):
         """(bound ms, what bounds it, bytes, operations) on these inputs:
@@ -242,11 +450,7 @@ def main() -> int:
             + 2 * planes * m_cap * chunks + m_cap * 32 * w
         )
         n_ops = n_inc * w + 4 * nnz * 32 * w
-        t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_OPS_PER_S
-        return (
-            max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", n_bytes, n_ops,
-        )
+        return (*bound(n_bytes, n_ops), n_bytes, n_ops)
 
     timings = {}
     for name in ("P=1 W=256", "P=3 W=256", "main path a@P=3"):
@@ -307,19 +511,26 @@ def main() -> int:
 
     # -- 5. result lines ---------------------------------------------------
     k_ms, p_ms, bound_ms, bound_by = timings["main path a@P=3"]
+    rows = [("tm_popcount", "tm_popcount/kernel.py:128", main_launches,
+             max_err, (k_ms, p_ms, bound_ms, bound_by, None))]
+    for kname, body in (("clause_eval", "clause_eval/kernel.py:28"),
+                        ("clause_matmul", "clause_matmul/kernel.py:28"),
+                        ("tm_interp", "tm_interp/kernel.py:37")):
+        rows.append((kname, body, path_launches[kname], new_err[kname],
+                     new_timings[kname]))
     print(json.dumps({"kernels": [{
-        "name": "tm_popcount",
+        "name": name,
         "route": "cuda",
-        "source": "src/repro_torch/csrc/tm_popcount.cu",
-        "replaces": "src/repro/kernels/tm_popcount/kernel.py:128",
-        "launches": main_launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
+        "source": f"src/repro_torch/csrc/{name}.cu",
+        "replaces": f"src/repro/kernels/{body}",
+        "launches": n,
+        "max_abs_err": err,
+        "ms": t[0],
+        "plain_ms": t[1],
+        "bound_ms": t[2],
+        "bound_by": t[3],
+        "library_ms": t[4],
+    } for name, body, n, err, t in rows]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

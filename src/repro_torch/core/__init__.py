@@ -3,7 +3,14 @@
 stream (compress.py).  Training, booleanization and the stream
 interpreter are not ported yet."""
 
-from .bits import from_u32, lshr, popcount, to_u32, wrap_i32
+from .bits import (
+    from_u32,
+    lshr,
+    popcount,
+    segmented_and_scan,
+    to_u32,
+    wrap_i32,
+)
 from .compress import (
     CompressedModel,
     DecodedPlan,
@@ -50,6 +57,7 @@ __all__ = [
     "packed_class_sums",
     "popcount",
     "predict",
+    "segmented_and_scan",
     "state_from_actions",
     "to_u32",
     "unpack_bits",

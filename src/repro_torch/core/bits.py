@@ -46,6 +46,22 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
     return (y & 0x3F) + (x < 0).to(torch.int32)
 
 
+def segmented_and_scan(sel: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Inclusive AND scan over axis 0 that restarts where ``start`` is
+    True: a log-step Hillis-Steele scan whose combine ANDs only inside
+    one segment, so it is exact in log2(I) vectorized rounds."""
+    flag, val = start, sel
+    d = 1
+    while d < sel.shape[0]:
+        v = val.clone()
+        v[d:] = torch.where(flag[d:, None], val[d:], val[d:] & val[:-d])
+        f = flag.clone()
+        f[d:] = flag[d:] | flag[:-d]
+        flag, val = f, v
+        d *= 2
+    return val
+
+
 def from_u32(a: np.ndarray, device=None) -> torch.Tensor:
     """numpy uint32 -> int32 tensor with the same bits."""
     a = np.ascontiguousarray(a, dtype=np.uint32)

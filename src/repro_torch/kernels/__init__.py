@@ -1,4 +1,5 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-twin.  ``tm_popcount`` (csrc/tm_popcount.cu) is the main-path kernel;
-``tm_interp`` holds only the shared host-side operand flattening so far.
-``_build`` compiles ``csrc/*.cu`` with nvcc at first use."""
+twin: ``tm_popcount`` (the served main path), ``tm_interp`` (the plan
+interpreter), ``clause_eval`` (dense bitpacked clauses) and
+``clause_matmul`` (clauses as an int8 tensor-core product).  ``_build``
+compiles ``csrc/*.cu`` with nvcc at first use."""

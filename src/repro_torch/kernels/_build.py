@@ -94,6 +94,20 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` (built on first use)."""
+    """The built library of ``csrc/<name>.cu`` (built on first use).
+    Every source exports ``<name>_error_string``, CUDA's text for an
+    error code, which ``raise_on`` reads."""
     build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    lib = ctypes.CDLL(str(library_path(name)))
+    text = getattr(lib, f"{name}_error_string")
+    text.argtypes = [ctypes.c_int]
+    text.restype = ctypes.c_char_p
+    return lib
+
+
+def raise_on(name: str, err: int, what: str) -> None:
+    """Raise when a launch entry of ``csrc/<name>.cu`` returned a CUDA
+    error code (0 is success)."""
+    if err:
+        msg = getattr(load(name), f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} {what} launch failed: {msg} ({err})")

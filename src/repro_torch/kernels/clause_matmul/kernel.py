@@ -1,0 +1,121 @@
+"""Clause evaluation as a matrix product: the CUDA kernel's wrapper and
+its plain PyTorch twin.
+
+The function is that of ``repro.kernels.clause_matmul.kernel``: for
+``{0,1}`` actions ``A[NC, L2]`` and literals ``L[L2, B]``,
+``viol = A @ (1 - L)`` and ``fired = (viol == 0) & (sum(A, 1) > 0)``, as
+int32[NC, B].
+
+``clause_matmul`` is the one entry point.  On CPU tensors it runs
+``clause_matmul_plain``; on CUDA tensors it launches the int8
+tensor-core kernel of ``csrc/clause_matmul.cu`` (three launches: narrow
+the actions, narrow and transpose the literals, the product) or raises;
+there is no fallback between the two.  ``launches`` counts the CUDA
+launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+
+# CUDA kernel launches made by clause_matmul (the plain twin never counts)
+launches = 0
+
+
+def clause_matmul_plain(
+    actions: torch.Tensor,  # int32 {0,1}[NC, L2]
+    lits: torch.Tensor,  # int32 {0,1}[L2, B]
+) -> torch.Tensor:
+    """The product in plain PyTorch -> int32[NC, B], on any device.
+
+    float32 holds the violation counts exactly (they stay below 2**24);
+    CUDA has no int32 matmul.  On the card TF32 would round them, so the
+    twin refuses to run with TF32 enabled
+    (``torch.backends.cuda.matmul.allow_tf32 = False`` is the default)."""
+    if actions.is_cuda and (
+        torch.backends.cuda.matmul.allow_tf32
+        or torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise RuntimeError(
+            "clause_matmul_plain needs exact float32 products: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False"
+        )
+    viol = actions.to(torch.float32) @ (1 - lits).to(torch.float32)
+    nonempty = actions.sum(dim=1) > 0
+    return ((viol == 0) & nonempty[:, None]).to(torch.int32)
+
+
+def _check_operands(actions, lits):
+    if actions.device != lits.device:
+        raise ValueError(
+            f"actions is on {actions.device} but lits on {lits.device}"
+        )
+    if actions.dim() != 2 or lits.dim() != 2 or 0 in (
+        *actions.shape, *lits.shape
+    ):
+        raise ValueError(
+            f"actions [NC, L2] and lits [L2, B] must be non-empty matrices, "
+            f"got {tuple(actions.shape)} and {tuple(lits.shape)}"
+        )
+    if actions.shape[1] != lits.shape[0]:
+        raise ValueError(
+            f"actions has {actions.shape[1]} literals but lits "
+            f"{lits.shape[0]} rows"
+        )
+
+
+def clause_matmul(actions: torch.Tensor, lits: torch.Tensor) -> torch.Tensor:
+    """int32[NC, B] clause outputs (1 = fired; empty clause -> 0).
+
+    Both operands are cast to int32 as the reference casts them; CPU
+    tensors run the plain twin, CUDA tensors launch the kernel or raise."""
+    actions, lits = actions.to(torch.int32), lits.to(torch.int32)
+    _check_operands(actions, lits)
+    dev = lits.device
+    if dev.type == "cpu":
+        return clause_matmul_plain(actions, lits)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"clause_matmul runs on 'cpu' or 'cuda' tensors, got {dev}"
+        )
+    return _clause_matmul_cuda(actions, lits)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("clause_matmul")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.clause_matmul_launch.argtypes = [p, p, i, i, i, i, p, p, p, p, p]
+    lib.clause_matmul_launch.restype = i
+    lib.clause_matmul_k_step.argtypes = []
+    lib.clause_matmul_k_step.restype = i
+    return lib
+
+
+def _clause_matmul_cuda(actions, lits):
+    global launches
+    if not (actions.is_contiguous() and lits.is_contiguous()):
+        raise ValueError("clause_matmul operands must be contiguous")
+    nc, l2 = actions.shape
+    b = lits.shape[1]
+    dev = lits.device
+    lib = _lib()
+    step = lib.clause_matmul_k_step()
+    l2p = -(-l2 // step) * step  # scratch rows: the literal axis rounded up
+    a8 = torch.empty((nc, l2p), dtype=torch.int8, device=dev)
+    nlt = torch.empty((b, l2p), dtype=torch.int8, device=dev)
+    nonempty = torch.empty(nc, dtype=torch.int32, device=dev)
+    out = torch.empty((nc, b), dtype=torch.int32, device=dev)
+    err = lib.clause_matmul_launch(
+        actions.data_ptr(), lits.data_ptr(), nc, l2, b, l2p, a8.data_ptr(),
+        nlt.data_ptr(), nonempty.data_ptr(), out.data_ptr(),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _build.raise_on("clause_matmul", err, "clause_matmul")
+    launches += 3
+    return out

@@ -1,14 +1,20 @@
-"""Host-side operand flattening shared by the interpreter and popcount
-paths.  The ``tm_interp`` kernel itself is not ported yet; only
-``plan_to_operands`` is, because the popcount program build reuses it."""
+"""Public wrappers of the plan interpreter (the twin of
+``repro.kernels.tm_interp.ops``): ``DecodedPlan`` -> per-instruction
+operand vectors (``plan_to_operands``, which the popcount program build
+reuses) -> class sums through the ``tm_interp`` kernel
+(``tm_compressed_class_sums``), and the literal packing it takes."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from ...core.compress import DecodedPlan
+from ...core.tm import pack_literals
+from .kernel import tm_interp
 
 
 def plan_to_operands(
@@ -51,3 +57,35 @@ def plan_to_operands(
                     f"program that would corrupt the class-sum bank"
                 )
     return lit_idx, last, pol, cls
+
+
+def clause_ends(last: np.ndarray) -> np.ndarray:
+    """int32 indices of the emitting instructions: clause k covers the
+    includes ``(ends[k-1], ends[k]]`` (from 0 for k = 0)."""
+    return np.flatnonzero(np.asarray(last) == 1).astype(np.int32)
+
+
+def tm_compressed_class_sums(
+    plan: DecodedPlan,
+    packed_lits: torch.Tensor,  # int32[2F, W] (interleaved literal rows)
+    *,
+    m_cap: int,
+    i_cap: int,
+) -> torch.Tensor:
+    """Compressed inference via the interpreter -> int32[m_cap, B], on the
+    device of ``packed_lits`` (the kernel on CUDA, its plain twin on the
+    CPU).  The clause table is built here, on the host, with the
+    operands."""
+    lit_idx, last, pol, cls = plan_to_operands(plan, i_cap, m_cap=m_cap)
+    dev = packed_lits.device
+    return tm_interp(
+        *(torch.from_numpy(a).to(dev) for a in (lit_idx, last, pol, cls)),
+        packed_lits, m_cap=m_cap,
+        clause_end=torch.from_numpy(clause_ends(last)).to(dev),
+    )
+
+
+def pack_interleaved_literals(x: torch.Tensor) -> torch.Tensor:
+    """{0,1}[B, F] -> int32[2F, W] with complement rows interleaved; the
+    batch is padded with zero rows to a whole number of words."""
+    return pack_literals(F.pad(x, (0, 0, 0, -x.shape[0] % 32)))

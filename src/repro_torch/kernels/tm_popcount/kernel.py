@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ...core.bits import lshr, popcount
+from ...core.bits import lshr, popcount, segmented_and_scan
 from .. import _build
 
 # CUDA kernel launches made by tm_popcount (the plain twin never counts)
@@ -83,22 +83,6 @@ def popcount_reduce(
     return sums.transpose(1, 2).reshape(planes.shape[1], w * 32)
 
 
-def _segmented_and_scan(sel: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
-    """Inclusive AND scan over axis 0 that restarts where ``start`` is
-    True: a log-step Hillis-Steele scan whose combine ANDs only inside
-    one segment, so it is exact in log2(I) vectorized rounds."""
-    flag, val = start, sel
-    d = 1
-    while d < sel.shape[0]:
-        v = val.clone()
-        v[d:] = torch.where(flag[d:, None], val[d:], val[d:] & val[:-d])
-        f = flag.clone()
-        f[d:] = flag[d:] | flag[:-d]
-        flag, val = f, v
-        d *= 2
-    return val
-
-
 def _pad_operands(lit_idx, last_flag, mask_pos, mask_neg):
     """Pad the instruction axis to a multiple of 32 (padding ANDs row 0
     and never emits) and the masks to the matching chunk count."""
@@ -129,7 +113,7 @@ def tm_popcount_plain(
     sel = packed_lits[lit_idx.long()]  # [I, W] literal select
     emit = last_flag == 1
     start = torch.cat([emit.new_ones(1), emit[:-1]])
-    acc = _segmented_and_scan(sel, start)  # packed clause outputs
+    acc = segmented_and_scan(sel, start)  # packed clause outputs
     emit_words = torch.where(emit[:, None], acc, 0)
     return popcount_reduce(emit_words, mask_pos, mask_neg)
 
@@ -212,15 +196,7 @@ def _lib() -> ctypes.CDLL:
     lib.tm_popcount_clause_words.restype = i
     lib.tm_popcount_reduce.argtypes = [p, p, i, p, p, i, i, i, i, p, p]
     lib.tm_popcount_reduce.restype = i
-    lib.tm_popcount_error_string.argtypes = [i]
-    lib.tm_popcount_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _raise_on(lib, err: int, what: str) -> None:
-    if err:
-        msg = lib.tm_popcount_error_string(err).decode()
-        raise RuntimeError(f"tm_popcount {what} launch failed: {msg} ({err})")
 
 
 def _tm_popcount_cuda(
@@ -258,13 +234,13 @@ def _tm_popcount_cuda(
             packed_lits.data_ptr(), l2, w, n_chunks * 32, emit.data_ptr(),
             stream,
         )
-        _raise_on(lib, err, "clause-words")
+        _build.raise_on("tm_popcount", err, "clause-words")
         launches += 1
     err = lib.tm_popcount_reduce(
         emit.data_ptr(), last_flag.data_ptr(), i_cap,
         mask_pos.data_ptr(), mask_neg.data_ptr(), planes, m_cap, n_chunks, w,
         out.data_ptr(), stream,
     )
-    _raise_on(lib, err, "reduce")
+    _build.raise_on("tm_popcount", err, "reduce")
     launches += 1
     return out

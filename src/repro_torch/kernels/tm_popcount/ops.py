@@ -17,7 +17,7 @@ import torch
 
 from ...core.bits import from_u32
 from ...core.compress import DecodedPlan
-from ..tm_interp.ops import plan_to_operands
+from ..tm_interp.ops import clause_ends, plan_to_operands
 from .kernel import tm_popcount
 
 
@@ -133,12 +133,6 @@ def plan_to_popcount_operands(
         last, pol, cls, wts, m_cap, planes
     )
     return lit_idx, last, mask_pos, mask_neg
-
-
-def clause_ends(last: np.ndarray) -> np.ndarray:
-    """int32 indices of the emitting instructions: clause k covers the
-    includes ``(ends[k-1], ends[k]]`` (from 0 for k = 0)."""
-    return np.flatnonzero(np.asarray(last) == 1).astype(np.int32)
 
 
 def tm_popcount_class_sums(

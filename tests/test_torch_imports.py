@@ -1,8 +1,10 @@
 """The port neither leaks into the reference nor falls back on its own:
-it imports no JAX and nothing of ``repro``; its entry points refuse to
-run without a CUDA card unless ``device="cpu"`` is asked for; and the
-``tm_popcount`` wrapper sends a CUDA tensor to the kernel, never to the
-plain twin.
+it imports no JAX and nothing of ``repro`` (every module, the kernel
+packages ``tm_popcount``, ``tm_interp``, ``clause_eval`` and
+``clause_matmul`` among them, imports without ``nvcc``); its entry
+points refuse to run without a CUDA card unless ``device="cpu"`` is
+asked for; and the kernel wrappers send a CUDA tensor to the kernel,
+never to the plain twin.
 """
 
 import os
@@ -23,6 +25,7 @@ from repro_torch.kernels.tm_popcount import kernel, ops
 from repro_torch.serve_tm import TMServer
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+KERNELS = ["clause_eval", "clause_matmul", "tm_interp", "tm_popcount"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -33,18 +36,23 @@ for name in names:
 leaks = sorted(m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "jaxlib"))
                or m == "repro" or m.startswith("repro."))
-print(len(names), leaks)
+kernels = sorted({n.split(".")[2] for n in names if n.startswith("repro_torch.kernels.")})
+print(len(names), ",".join(kernels), leaks)
 """
 
 
 def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], capture_output=True, text=True,
-        timeout=120, env={**os.environ, "PYTHONPATH": str(SRC)},
+        timeout=120, env={
+            **os.environ, "PYTHONPATH": str(SRC),
+            "CUDA_HOME": str(SRC / "no-such-toolkit"),  # no nvcc to be found
+        },
     )
     assert out.returncode == 0, out.stderr
-    n_modules, leaks = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 20
+    n_modules, kernels, leaks = out.stdout.split(maxsplit=2)
+    assert int(n_modules) >= 30
+    assert set(KERNELS) <= set(kernels.split(","))
     assert leaks.strip() == "[]"
 
 
@@ -106,7 +114,7 @@ def test_build_without_nvcc_raises_clearly(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(SRC / "no-such-toolkit"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
-    assert _build.kernel_names() == ["tm_popcount"]
+    assert _build.kernel_names() == KERNELS
 
 
 @pytest.mark.cuda
@@ -124,3 +132,43 @@ def test_cuda_tensors_launch_the_kernel_not_the_twin(monkeypatch):
     got = kernel.tm_popcount(*args)
     assert kernel.launches == before + 2
     assert torch.equal(got, want)
+
+
+def _dense_and_interp_calls(device):
+    """(module, wrapper call, plain-twin name, launches per call) for each
+    kernel of the dense and interpreter paths, on small operands on
+    ``device``."""
+    from repro_torch.kernels.clause_eval import kernel as ce
+    from repro_torch.kernels.clause_matmul import kernel as cm
+    from repro_torch.kernels.tm_interp import kernel as ti
+    from repro_torch.kernels.tm_interp.ops import plan_to_operands
+
+    rng = np.random.default_rng(2)
+    acts = torch.from_numpy((rng.random((12, 20)) < 0.2).astype(np.int32)).to(device)
+    lits = torch.from_numpy(rng.integers(0, 2, (20, 64)).astype(np.int32)).to(device)
+    packed = tm.pack_literals(torch.from_numpy(
+        rng.integers(0, 2, (64, 10), dtype=np.uint8)
+    )).to(device)
+    plan = compress.decode_to_plan(_model())
+    operands = [torch.from_numpy(a).to(device) for a in plan_to_operands(plan, 64)]
+    return [  # (..., CUDA launches per call)
+        (ce, lambda: ce.clause_eval(acts, packed), "clause_eval_plain", 1),
+        (cm, lambda: cm.clause_matmul(acts, lits), "clause_matmul_plain", 3),
+        (ti, lambda: ti.tm_interp(*operands, packed, m_cap=3), "tm_interp_plain", 1),
+    ]
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_launch_the_new_kernels_not_their_twins(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+    def no_twin(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain twin")
+
+    for module, call, twin, n in _dense_and_interp_calls("cuda"):
+        monkeypatch.setattr(module, twin, no_twin)
+        before = module.launches
+        call()
+        torch.cuda.synchronize()
+        assert module.launches == before + n, module.__name__
