@@ -7,10 +7,13 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX or ``repro``.
 At the paper's MNIST-scale width (10 classes x 200 clauses x 784
 features, ~17k includes, 8192 datapoints per flush) it
 
-  1. builds every kernel under src/repro_torch/csrc (``nvcc``, sm_90a);
+  1. builds every kernel under src/repro_torch/csrc (``nvcc``, sm_90a)
+     and prints the registers and local (spill) bytes of the kernels of
+     clause_matmul and tm_popcount;
   2. holds each kernel against its plain PyTorch twin on the card with
      ``torch.equal`` (integer sums: tolerance 0), one weight plane and
-     three, plus a ragged batch and a program with a zero-include class;
+     three, plus a ragged batch, a program with a zero-include class, and
+     the clause table and clause-space masks as the engine pads them;
   3. serves the main path through ``Accelerator``: compile -> bytes ->
      load -> submit (1, 37, 8192 rows) -> flush, a hot-swap under queued
      traffic, a rollback and the scheduler loop, every prediction held
@@ -23,10 +26,12 @@ features, ~17k includes, 8192 datapoints per flush) it
      ``tm_popcount`` sums -- all ``torch.equal`` and equal to the oracle;
      the three kernels' launch counts are zeroed just before and read
      just after; then each is ``torch.equal`` to its plain twin at full
-     width, on a ragged shape and on a zero-include class, and is timed
+     width, on the shapes that break its tiling (ragged and small clause,
+     literal and batch counts) and on a zero-include class, and is timed
      (CUDA events, median of 30; plain twins median of 10) beside its
      bound and, for clause_matmul, ``torch._int_mm`` on int8 operands
-     (the faster of its two layouts of the second operand);
+     (the faster of its two layouts of the second operand, also profiled
+     for its device time);
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
@@ -86,6 +91,27 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def span_us(prof, first: str, last: str):
+    """(median us, count) of one call's device span, from the earlier
+    start to the later end of its two kernels: each kernel whose name
+    holds ``first`` with the kernel whose name holds ``last`` that starts
+    nearest to it.  The second is launched early (programmatic dependent
+    launch), so the two overlap and the second's own time includes its
+    wait for the first.  The median, because the profiler's first
+    buffer request can hold one call's second launch back by
+    milliseconds."""
+    def launches(key):
+        return [e.time_range for e in prof.events() if key in e.name]
+
+    seconds = launches(last)
+    spans = []
+    for a in launches(first):
+        b = min(seconds, key=lambda t: abs(t.start - a.start), default=None)
+        if b is not None:
+            spans.append(max(a.end, b.end) - min(a.start, b.start))
+    return (statistics.median(spans) if spans else float("nan")), len(spans)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -104,6 +130,7 @@ def main() -> int:
         encode,
         from_u32,
         pack_literals,
+        popcount,
         state_from_actions,
     )
     from repro_torch.core import include_actions, literals
@@ -134,6 +161,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    for name, kernels in (("clause_matmul", ("narrow", "product")),
+                          ("tm_popcount", ("clause_words", "reduce"))):
+        for which, kname in enumerate(kernels):
+            attr = _build.attributes(name, which)
+            print(f"attributes {name} {kname}: numRegs {attr['regs']}, "
+                  f"localSizeBytes {attr['local_bytes']}, "
+                  f"sharedSizeBytes {attr['shared_bytes']}")
 
     # -- the paper-MNIST models (seed 0 is benchmarks' synthetic model) -----
     cfg = TMConfig(n_classes=10, n_clauses=200, n_features=784)
@@ -183,16 +217,49 @@ def main() -> int:
         ),
         "zero-include class": (operands(plan_z, I_CAP, None), lits),
     }
+
+    def engine_table(ops):
+        """The clause table padded to I_cap and its masks in clause space
+        at the capacity's chunk count, as PopcountEngine builds them."""
+        ends = clause_ends(ops[1].cpu().numpy())
+        table = torch.zeros(ops[0].numel(), dtype=torch.int32, device=dev)
+        table[: ends.size] = torch.from_numpy(ends).to(dev)
+        masks = tmk.clause_space_masks(
+            ops[2], ops[3], table[: ends.size],
+            n_chunks=-(-ops[0].numel() // 32),
+        )
+        return {"clause_end": table, "n_clauses": int(ends.size),
+                "clause_masks": masks}
+
+    # the shapes that break the clause-chunk walk: n_clauses off a multiple
+    # of 32 and chunks that straddle two classes (model a), a class with no
+    # clauses (plan_z), one plane and three, W = 37
+    ends_a_np = clause_ends(cases["P=1 W=256"][0][1].cpu().numpy())
+    cls_a = plan_a.clause_class  # one per clause, in stream order
+    n_chunks_a = -(-ends_a_np.size // 32)
+    straddle = sum(
+        len(set(cls_a[32 * c:32 * c + 32].tolist())) > 1
+        for c in range(n_chunks_a)
+    )
+    print(f"tm_popcount cases: model a {ends_a_np.size} clauses "
+          f"({ends_a_np.size % 32} in its last chunk), {n_chunks_a} chunks, "
+          f"{straddle} straddling two classes")
+    if ends_a_np.size % 32 == 0 or straddle == 0:
+        fail("model a no longer has a ragged clause count and straddling chunks")
     max_err = 0
-    for name, (ops, packed) in cases.items():
-        got = tmk.tm_popcount(*ops, packed)
+    for name, (ops, packed) in list(cases.items()) + [
+        ("engine table a@P=3", cases["main path a@P=3"]),
+        ("engine table zero-include class", cases["zero-include class"]),
+    ]:
+        table = engine_table(ops) if name.startswith("engine") else {}
+        got = tmk.tm_popcount(*ops, packed, **table)
         want = tmk.tm_popcount_plain(*ops, packed)
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         max_err = max(max_err, err)
         if not torch.equal(got, want):
             fail(f"kernel != plain twin on {name}: max abs err {err}")
-        if name == "zero-include class" and bool(got[3].any()):
+        if name.endswith("zero-include class") and bool(got[3].any()):
             fail("the zero-include class has nonzero sums")
         print(f"parity {name}: equal, sums shape {tuple(got.shape)}")
 
@@ -318,9 +385,15 @@ def main() -> int:
             "ragged W=37": (A2, lits37),
             "zero-include class": (Az, lits),
         }),
+        # NC off the 128-clause tile (2000, 37), B off and below the
+        # 256-datapoint tile (8191, 100), L2 off the 64-byte scratch grain
+        # and the 128-byte K step (1568, 100) and L2 = 1; all-zero rows
         "clause_matmul": (cmk.clause_matmul, cmk.clause_matmul_plain, {
             "B=8192": (A2, lits_01),
             "ragged B=8191": (A2, lits_01[:, :8191].contiguous()),
+            "NC=37 B=100": (A2[:37].contiguous(), lits_01[:, :100].contiguous()),
+            "L2=100": (A2[:, :100].contiguous(), lits_01[:100].contiguous()),
+            "L2=1": (A2[:, :1].contiguous(), lits_01[:1].contiguous()),
             "zero-include class": (Az, lits_01),
         }),
         "tm_interp": (
@@ -411,6 +484,7 @@ def main() -> int:
             if not by_layout:
                 fail("torch._int_mm took neither layout")
             lib_ms = min(by_layout.values())
+            lib_b = nl_i8[min(by_layout, key=by_layout.get)]
         new_timings[kname] = (k_ms, p_ms, bound_ms, bound_by, lib_ms)
         lib = "none" if lib_ms is None else f"{lib_ms:.6f} ms"
         print(f"time {kname}: kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms "
@@ -426,38 +500,46 @@ def main() -> int:
         for kfn, _, _ in timed.values():
             for _ in range(10):
                 kfn()
+        for _ in range(10):  # the library's product beside clause_matmul's
+            torch._int_mm(a_i8, lib_b)
         torch.cuda.synchronize()
     for ev in prof.key_averages():  # every device kernel of the three
         us = getattr(ev, "device_time_total", 0) / max(ev.count, 1)
         if us > 0:
             print(f"profile 3b: {ev.key} {us:.3f} us/launch x{ev.count}")
+    us, n = span_us(prof, "namespace)::narrow", "namespace)::product")
+    print(f"profile 3b: clause_matmul device span narrow..product {us:.3f} "
+          f"us/call (median of {n})")
 
     # -- 4. timings --------------------------------------------------------
     def kernel_bound(ops, packed):
-        """(bound ms, what bounds it, bytes, operations) on these inputs:
-        each input read once and the sums written once; one AND per
-        include and batch word, and per nonzero (plane, class, chunk)
-        mask pair two ANDs and two popcounts per datapoint."""
+        """(bound ms, what bounds it, bytes, operations) on these inputs,
+        the least the function needs whatever implements it: each input
+        read once and the sums written once; one AND per include and
+        batch word, and per (plane, class) ceil(its clauses / 32) chunks
+        of two ANDs and two popcounts per datapoint."""
         li, last, mp, mn = ops
         planes = 1 if mp.dim() == 2 else mp.shape[0]
         l2, w = packed.shape
         ends = torch.nonzero(last == 1)
         n_inc = int(ends[-1]) + 1 if ends.numel() else 0
-        nnz = int(((mp | mn) != 0).sum())
-        m_cap, chunks = mp.shape[-2], mp.shape[-1]
+        # clauses each (plane, class) selects: set bits of its masks
+        selected = popcount(mp | mn).sum(dim=-1, dtype=torch.int64)
+        chunks = int(((selected + 31) // 32).sum())
+        m_cap, i_chunks = mp.shape[-2], mp.shape[-1]
         n_bytes = 4 * (
             l2 * w + 2 * li.numel() + int((last == 1).sum())
-            + 2 * planes * m_cap * chunks + m_cap * 32 * w
+            + 2 * planes * m_cap * i_chunks + m_cap * 32 * w
         )
-        n_ops = n_inc * w + 4 * nnz * 32 * w
+        n_ops = n_inc * w + 4 * chunks * 32 * w
         return (*bound(n_bytes, n_ops), n_bytes, n_ops)
 
     timings = {}
     for name in ("P=1 W=256", "P=3 W=256", "main path a@P=3"):
         ops, packed = cases[name]
-        # as the engine calls it: the clause table built at program time
-        ends = torch.nonzero(ops[1] == 1).flatten().to(torch.int32)
-        table = {"clause_end": ends, "n_clauses": ends.numel()}
+        # as the engine calls it: the clause table and the clause-space
+        # masks built at program time
+        table = engine_table(ops)
         k_ms = median_ms(lambda: tmk.tm_popcount(*ops, packed, **table))
         p_ms = median_ms(lambda: tmk.tm_popcount_plain(*ops, packed), reps=20)
         bound_ms, bound_by, n_bytes, n_ops = kernel_bound(ops, packed)
@@ -476,6 +558,10 @@ def main() -> int:
             if "kernel" in ev.key and ev.count:
                 us = getattr(ev, "device_time_total", 0) / ev.count
                 print(f"profile {name}: {ev.key} {us:.3f} us/launch x{ev.count}")
+        us, n = span_us(prof, "namespace)::clause_words_kernel",
+                        "namespace)::reduce_kernel")
+        print(f"profile {name}: device span clause_words..reduce {us:.3f} "
+              f"us/call (median of {n})")
     staging = acc.engine.staging_tensor
     x_dev = torch.empty_like(staging, device=dev)
     h2d_ms = median_ms(lambda: x_dev.copy_(staging, non_blocking=True))

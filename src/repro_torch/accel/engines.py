@@ -6,11 +6,12 @@ sums come from popcounts against per-class polarity-bank bitplanes.  On
 CUDA it launches the hand-written Hopper kernel, on the CPU (only when
 asked for with ``device="cpu"``) its plain PyTorch twin.
 
-The program (operand vectors, the clause-end table and the class masks)
-moves to the device once, at ``program()``.  Each call copies the pinned
-staging block into a preallocated device buffer without blocking (the
-counterpart of the reference engine donating its feature buffer), packs
-the literals on the device and runs the kernel.  The ``interp``,
+The program (operand vectors, the clause-end table and the class masks,
+in instruction space for the plain twin and in clause space for the
+kernel) moves to the device once, at ``program()``.  Each call copies the
+pinned staging block into a preallocated device buffer without blocking
+(the counterpart of the reference engine donating its feature buffer),
+packs the literals on the device and runs the kernel.  The ``interp``,
 ``plan`` and ``sharded`` engines of the reference are not ported yet.
 """
 
@@ -24,7 +25,7 @@ import torch
 from ..core.bits import from_u32
 from ..core.compress import CompressedModel, decode_to_plan
 from ..core.tm import pack_literals
-from ..kernels.tm_popcount.kernel import tm_popcount
+from ..kernels.tm_popcount.kernel import clause_space_masks, tm_popcount
 from ..kernels.tm_popcount.ops import clause_ends, plan_to_popcount_operands
 from .capacity import CapacityPlan
 from .engine import EngineBase, register_engine
@@ -57,16 +58,22 @@ class PopcountEngine(EngineBase):
             l2_cap=2 * p.feature_capacity,
             weight_planes=p.weight_planes,
         )
-        # the clause table the kernel walks, padded to a capacity shape
+        # the clause table the kernel walks and the masks in clause space,
+        # both padded to capacity shapes
         ends = clause_ends(last)
         clause_end = np.zeros(p.instruction_capacity, np.int32)
         clause_end[: ends.size] = ends
+        cmasks = clause_space_masks(
+            from_u32(mask_pos), from_u32(mask_neg), torch.from_numpy(ends),
+            n_chunks=-(-p.instruction_capacity // 32),
+        )
         dev = self.device
         return {
             "lit_idx": torch.from_numpy(lit_idx).to(dev),
             "last": torch.from_numpy(last).to(dev),
             "clause_end": torch.from_numpy(clause_end).to(dev),
             "n_clauses": int(ends.size),
+            "clause_masks": tuple(m.to(dev) for m in cmasks),
             "mask_pos": from_u32(mask_pos, dev),
             "mask_neg": from_u32(mask_neg, dev),
             "n_classes": model.n_classes,
@@ -87,10 +94,12 @@ class PopcountEngine(EngineBase):
                 prog["lit_idx"], prog["last"], prog["mask_pos"],
                 prog["mask_neg"], packed,
             )
-            self._record_signature(*operands, prog["clause_end"])
+            self._record_signature(
+                *operands, prog["clause_end"], *prog["clause_masks"]
+            )
             sums = tm_popcount(
                 *operands, clause_end=prog["clause_end"],
-                n_clauses=prog["n_clauses"],
+                n_clauses=prog["n_clauses"], clause_masks=prog["clause_masks"],
             )
             # the device-to-host copy waits for the kernel, so the staging
             # block is free for the next batch when this returns

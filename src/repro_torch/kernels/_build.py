@@ -20,6 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -111,3 +113,25 @@ def raise_on(name: str, err: int, what: str) -> None:
     if err:
         msg = getattr(load(name), f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} {what} launch failed: {msg} ({err})")
+
+
+def attributes(name: str, which: int) -> Dict[str, int]:
+    """Registers and local (spill) bytes per thread and static shared
+    bytes of kernel ``which`` of ``csrc/<name>.cu``, as
+    ``cudaFuncGetAttributes`` reads them from the loaded library (a
+    source that offers them exports ``<name>_attributes``)."""
+    fn = getattr(load(name), f"{name}_attributes")
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(3)]
+    raise_on(name, fn(which, *vals), "attributes")
+    keys = ("regs", "local_bytes", "shared_bytes")
+    return dict(zip(keys, (v.value for v in vals)))
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``device`` as a raw handle for a
+    launch entry, read without building a ``torch.cuda.Stream`` object,
+    which costs more host time than a small kernel runs."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))

@@ -8,8 +8,8 @@ int32[NC, B].
 
 ``clause_matmul`` is the one entry point.  On CPU tensors it runs
 ``clause_matmul_plain``; on CUDA tensors it launches the int8
-tensor-core kernel of ``csrc/clause_matmul.cu`` (three launches: narrow
-the actions, narrow and transpose the literals, the product) or raises;
+tensor-core kernel of ``csrc/clause_matmul.cu`` (two launches: narrow
+both operands to int8, then the TMA-fed ``wgmma`` product) or raises;
 there is no fallback between the two.  ``launches`` counts the CUDA
 launches and nothing else.
 """
@@ -74,7 +74,10 @@ def clause_matmul(actions: torch.Tensor, lits: torch.Tensor) -> torch.Tensor:
 
     Both operands are cast to int32 as the reference casts them; CPU
     tensors run the plain twin, CUDA tensors launch the kernel or raise."""
-    actions, lits = actions.to(torch.int32), lits.to(torch.int32)
+    if actions.dtype != torch.int32:
+        actions = actions.to(torch.int32)
+    if lits.dtype != torch.int32:
+        lits = lits.to(torch.int32)
     _check_operands(actions, lits)
     dev = lits.device
     if dev.type == "cpu":
@@ -97,6 +100,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _k_step() -> int:
+    return _lib().clause_matmul_k_step()
+
+
 def _clause_matmul_cuda(actions, lits):
     global launches
     if not (actions.is_contiguous() and lits.is_contiguous()):
@@ -105,17 +113,22 @@ def _clause_matmul_cuda(actions, lits):
     b = lits.shape[1]
     dev = lits.device
     lib = _lib()
-    step = lib.clause_matmul_k_step()
+    step = _k_step()
     l2p = -(-l2 // step) * step  # scratch rows: the literal axis rounded up
-    a8 = torch.empty((nc, l2p), dtype=torch.int8, device=dev)
-    nlt = torch.empty((b, l2p), dtype=torch.int8, device=dev)
-    nonempty = torch.empty(nc, dtype=torch.int32, device=dev)
-    out = torch.empty((nc, b), dtype=torch.int32, device=dev)
+    # one allocation, as rows of the output: the output int32[nc][b], then
+    # the scratch int8 a8[nc][l2p], int8 nlt[b][l2p] and int32
+    # nonempty[nc] from the first 64-byte boundary on.  The output is a
+    # view of it and keeps the scratch (16 MB at the paper's width, a
+    # quarter of the output) alive with it.
+    scratch = (nc + b) * l2p + 4 * nc + 64
+    block = torch.empty((nc + -(-scratch // (4 * b)), b), dtype=torch.int32,
+                        device=dev)
+    out = block[:nc]
+    a8 = -(-(block.data_ptr() + 4 * nc * b) // 64) * 64
     err = lib.clause_matmul_launch(
-        actions.data_ptr(), lits.data_ptr(), nc, l2, b, l2p, a8.data_ptr(),
-        nlt.data_ptr(), nonempty.data_ptr(), out.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        actions.data_ptr(), lits.data_ptr(), nc, l2, b, l2p, a8,
+        a8 + nc * l2p, a8 + (nc + b) * l2p, out.data_ptr(), _build.stream(dev),
     )
     _build.raise_on("clause_matmul", err, "clause_matmul")
-    launches += 3
+    launches += 2
     return out

@@ -12,22 +12,26 @@ against the polarity-bank bitplanes (``p`` only for 3-D weighted masks).
 
 ``tm_popcount`` is the one entry point.  On CPU tensors it runs
 ``tm_popcount_plain``; on CUDA tensors it launches the Hopper kernel of
-``csrc/tm_popcount.cu`` (two launches: clause words, then the reduction)
-or raises; there is no fallback between the two.  ``launches`` counts the
-CUDA launches and nothing else.  All packed words are int32 tensors
-holding uint32 bit patterns (``core.bits``).
+``csrc/tm_popcount.cu`` (two launches: compact clause words, then the
+reduction over 32-clause chunks) or raises; there is no fallback between
+the two.  The kernel reads the masks in clause space
+(``clause_space_masks``): a clause reaches the sums only through the mask
+bits at its last instruction, so gathering those bits gives the same
+sums.  ``launches`` counts the CUDA launches and nothing else.  All
+packed words are int32 tensors holding uint32 bit patterns
+(``core.bits``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ...core.bits import lshr, popcount, segmented_and_scan
+from ...core.bits import lshr, popcount, segmented_and_scan, wrap_i32
 from .. import _build
 
 # CUDA kernel launches made by tm_popcount (the plain twin never counts)
@@ -81,6 +85,44 @@ def popcount_reduce(
         plane = (pos - neg).sum(dim=1, dtype=torch.int32) << b  # [m, 32, W]
         sums = plane if sums is None else sums + plane
     return sums.transpose(1, 2).reshape(planes.shape[1], w * 32)
+
+
+def clause_space_masks(
+    mask_pos: torch.Tensor,  # int32[(P,) m_cap, chunks], instruction space
+    mask_neg: torch.Tensor,  # same shape as mask_pos
+    clause_end: torch.Tensor,  # int[n]: each clause's last instruction
+    n_chunks: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Polarity banks in instruction space -> the same banks in clause
+    space, int32[(P,) m_cap, n_chunks] (default ``ceil(n / 32)`` words).
+
+    Bit ``k`` of ``out[..., k >> 5]`` is bit ``end_k & 31`` of
+    ``mask[..., end_k >> 5]``, 0 where that chunk lies past the masks.
+    Clause ``k`` reaches the sums only through the mask bits at its last
+    instruction ``end_k`` (the words of other instructions never emit), so
+    reducing the compact clause words against these masks gives the sums
+    of the instruction-space reduction, for any masks, also one that
+    selects an instruction for two classes.  Runs on the device of the
+    masks, without a host sync."""
+    ends = clause_end.to(device=mask_pos.device, dtype=torch.int64)
+    n = ends.numel()
+    width = -(-n // 32)
+    n_chunks = width if n_chunks is None else n_chunks
+    if n_chunks < width:
+        raise ValueError(f"{n} clauses need {width} chunks, not {n_chunks}")
+    chunk = ends >> 5
+    valid = (chunk >= 0) & (chunk < mask_pos.shape[-1])
+    idx = torch.where(valid, chunk, 0)
+    shift = (ends & 31).to(torch.int32)
+    weights = torch.arange(32, device=ends.device, dtype=torch.int64)
+
+    def gather(mask):
+        bits = torch.where(valid, (mask[..., idx] >> shift) & 1, 0)
+        bits = F.pad(bits, (0, 32 * n_chunks - n))
+        bits = bits.reshape(*mask.shape[:-1], n_chunks, 32).to(torch.int64)
+        return wrap_i32((bits << weights).sum(dim=-1))
+
+    return gather(mask_pos), gather(mask_neg)
 
 
 def _pad_operands(lit_idx, last_flag, mask_pos, mask_neg):
@@ -164,6 +206,7 @@ def tm_popcount(
     *,
     clause_end: Optional[torch.Tensor] = None,
     n_clauses: Optional[int] = None,
+    clause_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Popcount-bitplane inference -> int32[m_cap, W*32] class sums.
 
@@ -171,7 +214,11 @@ def tm_popcount(
     raise.  ``clause_end`` (int32, the indices where ``last_flag == 1``,
     padded as the caller likes) with ``n_clauses`` valid entries is the
     program-time clause table the kernel walks; it is derived from
-    ``last_flag`` when not given."""
+    ``last_flag`` when not given.  ``clause_masks`` are ``mask_pos`` and
+    ``mask_neg`` in clause space for that table (``clause_space_masks``,
+    any width of at least ``ceil(n_clauses / 32)`` words), built once per
+    program; the kernel gathers them on the device when not given.  The
+    plain twin reads neither."""
     _check_operands(lit_idx, last_flag, mask_pos, mask_neg, packed_lits)
     dev = packed_lits.device
     if dev.type == "cpu":
@@ -184,7 +231,7 @@ def tm_popcount(
         )
     return _tm_popcount_cuda(
         lit_idx, last_flag, mask_pos, mask_neg, packed_lits,
-        clause_end, n_clauses,
+        clause_end, n_clauses, clause_masks,
     )
 
 
@@ -192,15 +239,16 @@ def tm_popcount(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("tm_popcount")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tm_popcount_clause_words.argtypes = [p, p, i, p, i, i, i, p, p]
-    lib.tm_popcount_clause_words.restype = i
-    lib.tm_popcount_reduce.argtypes = [p, p, i, p, p, i, i, i, i, p, p]
-    lib.tm_popcount_reduce.restype = i
+    lib.tm_popcount_launch.argtypes = [
+        p, i, p, i, p, i, i, p, p, i, i, i, p, i, p, p,
+    ]
+    lib.tm_popcount_launch.restype = i
     return lib
 
 
 def _tm_popcount_cuda(
-    lit_idx, last_flag, mask_pos, mask_neg, packed_lits, clause_end, n_clauses
+    lit_idx, last_flag, mask_pos, mask_neg, packed_lits, clause_end,
+    n_clauses, clause_masks,
 ):
     global launches
     dev = packed_lits.device
@@ -211,36 +259,40 @@ def _tm_popcount_cuda(
         raise ValueError("clause_end needs n_clauses within its length")
     if clause_end.device != dev or clause_end.dtype != torch.int32:
         raise ValueError("clause_end must be int32 on the operands' device")
-    tensors = (lit_idx, last_flag, mask_pos, mask_neg, packed_lits, clause_end)
+    n_chunks = -(-n_clauses // 32)
+    if clause_masks is None:
+        clause_masks = clause_space_masks(
+            mask_pos, mask_neg, clause_end[:n_clauses]
+        )
+    cpos, cneg = clause_masks
+    if not (
+        cpos.shape == cneg.shape and cpos.shape[:-1] == mask_pos.shape[:-1]
+        and cpos.shape[-1] >= n_chunks and cpos.dtype == cneg.dtype == torch.int32
+        and cpos.device == cneg.device == dev
+    ):
+        raise ValueError(
+            f"clause_masks must be int32 on {dev}, shaped "
+            f"{tuple(mask_pos.shape[:-1])} + (>= {n_chunks},), got "
+            f"{tuple(cpos.shape)} and {tuple(cneg.shape)}"
+        )
+    tensors = (lit_idx, packed_lits, clause_end, cpos, cneg)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("tm_popcount operands must be contiguous")
-    i_cap = lit_idx.shape[0]
-    n_chunks = -(-i_cap // 32)
-    if mask_pos.shape[-1] != n_chunks:
-        _, _, mask_pos, mask_neg = _pad_operands(
-            lit_idx, last_flag, mask_pos, mask_neg
-        )
-    planes, m_cap = (1, mask_pos.shape[0]) if mask_pos.dim() == 2 else (
-        mask_pos.shape[0], mask_pos.shape[1]
-    )
+    planes, m_cap = (1, cpos.shape[0]) if cpos.dim() == 2 else cpos.shape[:2]
     l2, w = packed_lits.shape
-    lib = _lib()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    emit = torch.empty((w, n_chunks * 32), dtype=torch.int32, device=dev)
-    out = torch.empty((m_cap, 32 * w), dtype=torch.int32, device=dev)
-    if n_clauses:
-        err = lib.tm_popcount_clause_words(
-            lit_idx.data_ptr(), clause_end.data_ptr(), n_clauses,
-            packed_lits.data_ptr(), l2, w, n_chunks * 32, emit.data_ptr(),
-            stream,
-        )
-        _build.raise_on("tm_popcount", err, "clause-words")
-        launches += 1
-    err = lib.tm_popcount_reduce(
-        emit.data_ptr(), last_flag.data_ptr(), i_cap,
-        mask_pos.data_ptr(), mask_neg.data_ptr(), planes, m_cap, n_chunks, w,
-        out.data_ptr(), stream,
+    # one allocation, as rows of the sums: the sums [m_cap][32 w], then
+    # the compact clause words [w][k_pad] (the tail rows written 0)
+    k_pad = 32 * max(n_chunks, 1)
+    block = torch.empty((m_cap + k_pad // 32, 32 * w), dtype=torch.int32,
+                        device=dev)
+    out = block[:m_cap]
+    err = _lib().tm_popcount_launch(
+        lit_idx.data_ptr(), lit_idx.shape[0], clause_end.data_ptr(),
+        n_clauses, packed_lits.data_ptr(), l2, w, cpos.data_ptr(),
+        cneg.data_ptr(), planes, m_cap, cpos.shape[-1],
+        out.data_ptr() + 4 * out.numel(), k_pad, out.data_ptr(),
+        _build.stream(dev),
     )
-    _build.raise_on("tm_popcount", err, "reduce")
-    launches += 1
+    _build.raise_on("tm_popcount", err, "tm_popcount")
+    launches += 2 if n_clauses else 1
     return out

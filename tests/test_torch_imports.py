@@ -153,7 +153,7 @@ def _dense_and_interp_calls(device):
     operands = [torch.from_numpy(a).to(device) for a in plan_to_operands(plan, 64)]
     return [  # (..., CUDA launches per call)
         (ce, lambda: ce.clause_eval(acts, packed), "clause_eval_plain", 1),
-        (cm, lambda: cm.clause_matmul(acts, lits), "clause_matmul_plain", 3),
+        (cm, lambda: cm.clause_matmul(acts, lits), "clause_matmul_plain", 2),
         (ti, lambda: ti.tm_interp(*operands, packed, m_cap=3), "tm_interp_plain", 1),
     ]
 

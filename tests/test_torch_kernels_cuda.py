@@ -1,5 +1,6 @@
-"""The dense and interpreter kernels against their plain twins on a CUDA
-card, exact (integer words, counts and sums: tolerance 0).
+"""The port's kernels against their plain twins on a CUDA card, exact
+(integer words, counts and sums: tolerance 0), on the shapes that break
+their tilings.
 
 Marked ``cuda``; every test skips itself without a card.  The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -19,6 +20,8 @@ from repro_torch.kernels.clause_eval.ref import clause_eval_ref
 from repro_torch.kernels.clause_matmul import kernel as cm_kernel
 from repro_torch.kernels.tm_interp import kernel as ti_kernel
 from repro_torch.kernels.tm_interp.ops import clause_ends, plan_to_operands
+from repro_torch.kernels.tm_popcount import kernel as popcount_kernel
+from repro_torch.kernels.tm_popcount import ops as popcount_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -49,20 +52,100 @@ def test_clause_eval_kernel_matches_plain_twin(dev, nc, l2, w):
     )
 
 
-@pytest.mark.parametrize("nc,l2,b", [(33, 30, 40), (200, 1568, 8191), (129, 33, 129)])
+# NC off the 64- and 128-clause tiles (2000, 37), B off the 256-datapoint
+# tile and below it (8191, 100, 40), L2 off the 64- and 128-byte K steps
+# (1568, 100, 30, 33) and exactly on them (128, 256)
+@pytest.mark.parametrize("nc,l2,b", [
+    (33, 30, 40), (200, 1568, 8191), (129, 33, 129), (2000, 1568, 8192),
+    (37, 100, 100), (2000, 100, 8191), (128, 128, 256), (64, 256, 512),
+])
 def test_clause_matmul_kernel_matches_plain_twin(dev, nc, l2, b):
     rng = np.random.default_rng(nc + b)
     actions = (rng.random((nc, l2)) < 0.01).astype(np.int32)
     actions[::2, l2 // 2:] = 0  # even clauses include only the all-ones half
-    actions[1] = 0
+    actions[1] = 0  # an all-zero action row: never fires
     lits = rng.integers(0, 2, (l2, b)).astype(np.int32)
     lits[: l2 // 2] = 1
     a, l01 = torch.from_numpy(actions).to(dev), torch.from_numpy(lits).to(dev)
     before = cm_kernel.launches
     got = cm_kernel.clause_matmul(a, l01)
-    assert cm_kernel.launches == before + 3  # narrow A, narrow L, product
+    assert cm_kernel.launches == before + 2  # narrow both operands, product
     torch.testing.assert_close(got, cm_kernel.clause_matmul_plain(a, l01), rtol=0, atol=0)
     assert got.any() and not got[1].any()
+
+
+@pytest.mark.parametrize("nc,b", [(37, 100), (2000, 300)])
+def test_clause_matmul_kernel_on_one_literal(dev, nc, b):
+    """L2 = 1: a single K step, almost all of it TMA's zero fill."""
+    rng = np.random.default_rng(b)
+    actions = rng.integers(0, 2, (nc, 1)).astype(np.int32)
+    actions[0] = 0
+    lits = rng.integers(0, 2, (1, b)).astype(np.int32)
+    a, l01 = torch.from_numpy(actions).to(dev), torch.from_numpy(lits).to(dev)
+    got = cm_kernel.clause_matmul(a, l01)
+    torch.testing.assert_close(got, cm_kernel.clause_matmul_plain(a, l01), rtol=0, atol=0)
+    assert got.any() and not got[0].any()
+
+
+def _popcount_case(dev, n_clauses_per_class, m_cap, w, planes, i_slack, seed):
+    """A program of ``len(n_clauses_per_class)`` classes with the given
+    clause counts (0: a class with no clauses), its popcount operands on
+    the card, and packed literals of ``w`` batch words."""
+    rng = np.random.default_rng(seed)
+    n_cls, n_clauses, n_feat = len(n_clauses_per_class), max(n_clauses_per_class), 40
+    acts = rng.random((n_cls, n_clauses, 2 * n_feat)) < 0.05
+    acts[:, :, 1::2] &= rng.random((n_cls, n_clauses, n_feat)) < 0.3
+    for m, n in enumerate(n_clauses_per_class):
+        acts[m, n:] = False
+    weights = rng.integers(1, 8, (n_cls, n_clauses)) if (planes or 0) > 1 else None
+    plan = compress.decode_to_plan(
+        compress.encode(TMConfig(n_cls, n_clauses, n_feat), acts, weights)
+    )
+    li, last, mp, mn = popcount_ops.plan_to_popcount_operands(
+        plan, plan.n_includes + i_slack, m_cap, l2_cap=2 * n_feat,
+        weight_planes=planes,
+    )
+    lits = from_u32(_u32(rng, (2 * n_feat, w)), dev)
+    lits[::2] = -1  # positive literals all ones, so that clauses fire
+    ops = [torch.from_numpy(li).to(dev), torch.from_numpy(last).to(dev),
+           from_u32(mp, dev), from_u32(mn, dev)]
+    return ops, lits
+
+
+# clause counts per class: 1000 + 999 clauses (n_clauses not a multiple of
+# 32, class 0's last chunk straddles into class 1); a class with none; the
+# paper's 10 x 200.  planes None: 2-D masks; 1: 3-D masks of one plane;
+# 3: weights 1-7 in three planes.
+@pytest.mark.parametrize("counts,m_cap,w,planes", [
+    ((1000, 999), 2, 37, None), ((1000, 999), 2, 8, 3),
+    ((40, 0, 40, 25), 20, 37, 3), ((40, 0, 40, 25), 20, 37, 1),
+    ((200,) * 10, 10, 256, None),
+    ((200,) * 10, 10, 256, 3),
+])
+def test_tm_popcount_kernel_matches_plain_twin(dev, counts, m_cap, w, planes):
+    ops, lits = _popcount_case(dev, counts, m_cap, w, planes, 13, len(counts))
+    last = ops[1].cpu().numpy()
+    ends = clause_ends(last)
+    # the engine's table: padded to capacity, its masks in clause space
+    # padded to the capacity's chunk count
+    table = torch.zeros(last.size, dtype=torch.int32, device=dev)
+    table[: ends.size] = torch.from_numpy(ends).to(dev)
+    masks = popcount_kernel.clause_space_masks(
+        ops[2], ops[3], table[: ends.size], n_chunks=-(-last.size // 32)
+    )
+    want = popcount_kernel.tm_popcount_plain(*ops, lits)
+    before = popcount_kernel.launches
+    bare = popcount_kernel.tm_popcount(*ops, lits)
+    assert popcount_kernel.launches == before + 2
+    served = popcount_kernel.tm_popcount(
+        *ops, lits, clause_end=table, n_clauses=int(ends.size), clause_masks=masks
+    )
+    for got in (bare, served):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert want.any()
+    for m, n in enumerate(counts):
+        if n == 0:
+            assert not want[m].any()
 
 
 @pytest.mark.parametrize(

@@ -21,7 +21,7 @@ from repro.kernels.tm_popcount import kernel as jkernel
 from repro.kernels.tm_popcount import ops as jops
 from repro.kernels.tm_popcount.ref import tm_popcount_ref as jref
 from repro_torch.core import compress
-from repro_torch.core.bits import from_u32, to_u32
+from repro_torch.core.bits import from_u32, segmented_and_scan, to_u32
 from repro_torch.core.tm import TMConfig, pack_literals
 from repro_torch.kernels.tm_popcount import kernel, ops
 from repro_torch.kernels.tm_popcount.ref import tm_popcount_ref
@@ -214,9 +214,78 @@ def test_wrapper_checks_operands():
         kernel.tm_popcount(*bad_lits)
 
 
+def _clause_space_sums(li, last, mp, mn, packed, n_chunks=None):
+    """The kernel's two steps in plain PyTorch: compact clause words (the
+    AND scan read at each clause's last instruction), then the popcount
+    reduction against the masks gathered into clause space."""
+    ends = torch.from_numpy(ops.clause_ends(last.numpy()))
+    cpos, cneg = kernel.clause_space_masks(mp, mn, ends, n_chunks)
+    emit = last == 1
+    start = torch.cat([emit.new_ones(1), emit[:-1]])
+    words = segmented_and_scan(packed[li.long()], start)[ends.long()]
+    words = torch.nn.functional.pad(
+        words, (0, 0, 0, 32 * cpos.shape[-1] - words.shape[0])
+    )
+    return kernel.popcount_reduce(words, cpos, cneg), cpos
+
+
+@pytest.mark.parametrize("seed,weighted,planes,slack,zero", PROGRAMS)
+@pytest.mark.parametrize("malformed", [False, True])
+def test_clause_space_masks_give_the_reference_sums(
+    seed, weighted, planes, slack, zero, malformed
+):
+    """The reference's instruction-space masks, gathered into clause
+    space, reduce the compact clause words to the sums of its
+    ``tm_popcount_xla``; also for a malformed mask that selects one
+    instruction for two classes and one that selects an instruction no
+    clause ends on, and at a capacity-padded width."""
+    rng, jm, _ = _program(seed, weighted=weighted, zero_class=zero)
+    jplan = jcomp.decode_to_plan(jm)
+    i_cap = jplan.n_includes + slack
+    li, last, mp, mn = (np.asarray(a) for a in jops.plan_to_popcount_operands(
+        jplan, i_cap, 6, l2_cap=80, weight_planes=planes
+    ))
+    if malformed:
+        mp, mn = mp.copy(), mn.copy()
+        ends = np.flatnonzero(last == 1)
+        t, u = int(ends[len(ends) // 2]), int(ends[0]) + 1
+        assert last[u] == 0
+        bank = mp[..., 5, :] if mp.ndim == 2 else mp[:, 5, :]
+        bank[..., t // 32] |= np.uint32(1) << np.uint32(t % 32)
+        mn[..., u // 32] |= np.uint32(1) << np.uint32(u % 32)
+    x = rng.integers(0, 2, (64, 40), dtype=np.uint8)
+    packed = pack_literals(torch.from_numpy(x))
+    want = np.asarray(jkernel.tm_popcount_xla(
+        jnp.asarray(li), jnp.asarray(last), jnp.asarray(mp), jnp.asarray(mn),
+        jnp.asarray(to_u32(packed)),
+    ))
+    targs = (torch.from_numpy(li), torch.from_numpy(last), from_u32(mp),
+             from_u32(mn), packed)
+    for width in (None, -(-i_cap // 32)):
+        got, cpos = _clause_space_sums(*targs, n_chunks=width)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert cpos.shape[:-1] == mp.shape[:-1]
+    np.testing.assert_array_equal(kernel.tm_popcount_plain(*targs).numpy(), want)
+
+
+def test_clause_space_masks_bit_layout_and_width():
+    """Bit k of the clause-space mask is the bit of clause k's last
+    instruction; a chunk past the masks reads as 0; a width narrower than
+    the clauses need raises."""
+    mask = torch.zeros((2, 3), dtype=torch.int32)
+    mask[1, 2] = 1 << 4  # instruction 68
+    mask[0, 0] = -(1 << 31)  # instruction 31
+    ends = torch.tensor([3, 31, 40, 68, 200], dtype=torch.int32)
+    pos, neg = kernel.clause_space_masks(mask, mask, ends, n_chunks=2)
+    assert pos.shape == (2, 2) and torch.equal(pos, neg)
+    assert pos.tolist() == [[1 << 1, 0], [1 << 3, 0]]
+    with pytest.raises(ValueError, match="need 2 chunks"):
+        kernel.clause_space_masks(mask, mask, torch.arange(33), n_chunks=1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("weighted", [False, True])
-def test_cuda_kernel_matches_plain_twin(weighted):
+@pytest.mark.parametrize("weighted,w", [(False, 7), (True, 7), (True, 37)])
+def test_cuda_kernel_matches_plain_twin(weighted, w):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng, _, tm_ = _program(11, weighted=weighted, zero_class=True)
@@ -225,7 +294,7 @@ def test_cuda_kernel_matches_plain_twin(weighted):
         plan, plan.n_includes + 9, 6, weight_planes=3 if weighted else None
     )
     dev = torch.device("cuda")
-    x = rng.integers(0, 2, (32 * 7, 40), dtype=np.uint8)
+    x = rng.integers(0, 2, (32 * w, 40), dtype=np.uint8)
     args = (
         torch.from_numpy(li).to(dev), torch.from_numpy(last).to(dev),
         from_u32(mp, dev), from_u32(mn, dev),
