@@ -8,8 +8,7 @@ At the paper's MNIST-scale width (10 classes x 200 clauses x 784
 features, ~17k includes, 8192 datapoints per flush) it
 
   1. builds every kernel under src/repro_torch/csrc (``nvcc``, sm_90a)
-     and prints the registers and local (spill) bytes of the kernels of
-     clause_matmul and tm_popcount;
+     and prints the registers and local (spill) bytes of every kernel;
   2. holds each kernel against its plain PyTorch twin on the card with
      ``torch.equal`` (integer sums: tolerance 0), one weight plane and
      three, plus a ragged batch, a program with a zero-include class, and
@@ -27,11 +26,15 @@ features, ~17k includes, 8192 datapoints per flush) it
      the three kernels' launch counts are zeroed just before and read
      just after; then each is ``torch.equal`` to its plain twin at full
      width, on the shapes that break its tiling (ragged and small clause,
-     literal and batch counts) and on a zero-include class, and is timed
+     literal and batch counts; for clause_eval L2 off the 16-byte loads,
+     NC = 1 and W = 1; for tm_interp a clause of 71 includes, clauses out
+     of class order with class ids out of range, W = 1 and m_cap above
+     the model's classes) and on a zero-include class, and is timed
      (CUDA events, median of 30; plain twins median of 10) beside its
      bound and, for clause_matmul, ``torch._int_mm`` on int8 operands
      (the faster of its two layouts of the second operand, also profiled
-     for its device time);
+     for its device time); clause_eval and tm_interp are profiled alone
+     for their device time and device operations per call;
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
@@ -142,6 +145,7 @@ def main() -> int:
     from repro_torch.kernels.tm_interp import kernel as tik
     from repro_torch.kernels.tm_interp.ops import (
         clause_ends,
+        compressed_operands,
         plan_to_operands,
         tm_compressed_class_sums,
     )
@@ -161,7 +165,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    for name, kernels in (("clause_matmul", ("narrow", "product")),
+    for name, kernels in (("clause_eval", ("clause_eval",)),
+                          ("clause_matmul", ("narrow", "product")),
+                          ("tm_interp", ("tm_interp",)),
                           ("tm_popcount", ("clause_words", "reduce"))):
         for which, kname in enumerate(kernels):
             attr = _build.attributes(name, which)
@@ -377,13 +383,41 @@ def main() -> int:
             for a in plan_to_operands(plan, i_cap, m_cap=M_CAP)
         ]
 
-    ops_a = interp_ops(plan_a, I_CAP)
+    # the operands and clause table as tm_compressed_class_sums builds them
+    *ops_a, ends_a = compressed_operands(plan_a, I_CAP, M_CAP, dev)
     lits37 = lits[:, :37].contiguous()
+    lits1 = lits[:, :1].contiguous()
+    # one clause of 71 includes (features 0..69 and one negated literal),
+    # its 70 positive literals all ones so that it fires
+    acts_long = acts_a.copy()
+    acts_long[4, 7] = False
+    acts_long[4, 7, 0:140:2] = True
+    acts_long[4, 7, 1001] = True
+    plan_long = decode_to_plan(encode(cfg, acts_long))
+    ops_long = interp_ops(plan_long, -(-plan_long.n_includes // 32) * 32)
+    longest = int(np.diff(clause_ends(ops_long[1].cpu().numpy()), prepend=-1).max())
+    if longest <= 64:
+        fail(f"the long-clause case has no clause over 64 includes ({longest})")
+    lits_long = lits.clone()
+    lits_long[0:140:2] = -1
+    # model a's clauses given random classes, some outside [0, M_CAP):
+    # the clause table is not in class order and ids are clamped
+    last_a = ops_a[1].cpu().numpy()
+    clause_of = np.cumsum(last_a) - last_a  # clause index per instruction
+    shuffled_cls = np.random.default_rng(3).integers(
+        -2, M_CAP + 2, int(last_a.sum()) + 1
+    ).astype(np.int32)[clause_of]
+    ops_shuffled = [*ops_a[:3], torch.from_numpy(shuffled_cls).to(dev)]
+    host_table = {"clause_end": ends_a}
     twin_cases = {
         "clause_eval": (cek.clause_eval, cek.clause_eval_plain, {
             "W=256": (A2, lits),
             "ragged W=37": (A2, lits37),
             "zero-include class": (Az, lits),
+            # rows off the 16-byte grain: 4-byte copies
+            "L2=1567": (A2[:, :1567].contiguous(), lits[:1567].contiguous()),
+            "NC=1": (A2[:1].contiguous(), lits),
+            "W=1": (A2, lits1),
         }),
         # NC off the 128-clause tile (2000, 37), B off and below the
         # 256-datapoint tile (8191, 100), L2 off the 64-byte scratch grain
@@ -396,12 +430,22 @@ def main() -> int:
             "L2=1": (A2[:, :1].contiguous(), lits_01[:1].contiguous()),
             "zero-include class": (Az, lits_01),
         }),
+        # (operands, literals, m_cap, clause table or none: derived on
+        # the device)
         "tm_interp": (
-            lambda *a: tik.tm_interp(*a, m_cap=M_CAP),
-            lambda *a: tik.tm_interp_plain(*a, M_CAP), {
-                "I_cap=16928 W=256": (*ops_a, lits),
-                "ragged I_cap=16921 W=37": (*interp_ops(plan_a, 16921), lits37),
-                "zero-include class": (*interp_ops(plan_z, I_CAP), lits),
+            lambda *a: tik.tm_interp(*a[:5], m_cap=a[5], **a[6]),
+            lambda *a: tik.tm_interp_plain(*a[:6]), {
+                "I_cap=16928 W=256": (*ops_a, lits, M_CAP, {}),
+                "host clause table": (*ops_a, lits, M_CAP, host_table),
+                "ragged I_cap=16921 W=37": (
+                    *interp_ops(plan_a, 16921), lits37, M_CAP, {}),
+                "zero-include class": (
+                    *interp_ops(plan_z, I_CAP), lits, M_CAP, {}),
+                "clause of 71 includes": (*ops_long, lits_long, M_CAP, {}),
+                "clauses out of class order": (
+                    *ops_shuffled, lits, M_CAP, {}),
+                "W=1": (*ops_a, lits1, M_CAP, {}),
+                "m_cap=13 above 10 classes": (*ops_a, lits, 13, {}),
             }),
     }
     new_err = {}
@@ -419,11 +463,12 @@ def main() -> int:
                 zero = got[3] if kname == "tm_interp" else got[600:800]
                 if bool(zero.any()):
                     fail(f"{kname}: the zero-include class is not all zeros")
+            if cname.startswith("m_cap=13") and bool(got[10:].any()):
+                fail("tm_interp: the rows above the model's classes are not zero")
             print(f"parity {kname} {cname}: equal, shape {tuple(got.shape)}")
 
     # timings at full width, with each kernel's bound from these inputs;
     # the clause table as tm_compressed_class_sums builds it, on the host
-    ends_a = torch.from_numpy(clause_ends(ops_a[1].cpu().numpy())).to(dev)
     n_inc_a = int(ends_a[-1]) + 1
     a_i8 = A2.to(torch.int8)
     # the second operand of the product in both layouts: [L2][B] rows as
@@ -449,12 +494,13 @@ def main() -> int:
                   2 * A2.numel() * lits_01.shape[1], PEAK_INT8_TC_OPS_PER_S),
         ),
         "tm_interp": (
-            lambda: tik.tm_interp(*ops_a, lits, m_cap=M_CAP, clause_end=ends_a),
+            lambda: tik.tm_interp(*ops_a, lits, m_cap=M_CAP, **host_table),
             lambda: tik.tm_interp_plain(*ops_a, lits, M_CAP),
-            # four operand vectors, the clause table, literals and sums;
-            # one AND per include and word, one add per clause bit
-            bound(4 * (sum(t.numel() for t in ops_a) + ends_a.numel()
-                       + lits.numel() + M_CAP * 32 * lits.shape[1]),
+            # the function's four operand vectors, literals and sums (not
+            # the clause table, which only this kernel reads); one AND per
+            # include and word, one add per clause bit
+            bound(4 * (sum(t.numel() for t in ops_a) + lits.numel()
+                       + M_CAP * 32 * lits.shape[1]),
                   (n_inc_a + 32 * ends_a.numel()) * lits.shape[1]),
         ),
     }
@@ -494,6 +540,23 @@ def main() -> int:
         # the whole entry point: host operand build, kernel, polarity sums
         print(f"time form {name}: {median_ms(fn, reps=PLAIN_REPS, warmup=1):.6f} "
               f"ms (median of {PLAIN_REPS})")
+    # the compressed form's host work: its operand build and one copy, then
+    # the kernel's wrapper up to the launch (host clock)
+    host_ms = {
+        "compressed_operands": lambda: compressed_operands(
+            plan_a, I_CAP, M_CAP, dev),
+        "tm_interp wrapper": lambda: tik.tm_interp(
+            *ops_a, lits, m_cap=M_CAP, clause_end=ends_a),
+    }
+    for name, fn in host_ms.items():
+        times = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"time host {name}: {statistics.median(times):.6f} ms "
+              f"(median of {REPS})")
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA]
     ) as prof:
@@ -510,6 +573,20 @@ def main() -> int:
     us, n = span_us(prof, "namespace)::narrow", "namespace)::product")
     print(f"profile 3b: clause_matmul device span narrow..product {us:.3f} "
           f"us/call (median of {n})")
+    for kname in ("clause_eval", "tm_interp"):  # every device operation
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            for _ in range(10):
+                timed[kname][0]()
+            torch.cuda.synchronize()
+        ops = [(ev.key, ev.count, getattr(ev, "device_time_total", 0))
+               for ev in prof.key_averages()]
+        ops = [op for op in ops if op[2] > 0]
+        print(f"profile 3b: {kname} alone {sum(op[2] for op in ops) / 10:.3f} "
+              f"us on the device per call, "
+              f"{sum(op[1] for op in ops) / 10:g} device operations per call: "
+              f"{[op[0][:60] for op in ops]}")
 
     # -- 4. timings --------------------------------------------------------
     def kernel_bound(ops, packed):

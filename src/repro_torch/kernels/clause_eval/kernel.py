@@ -116,7 +116,7 @@ def _clause_eval_cuda(actions, packed_lits):
     out = torch.empty((nc, w), dtype=torch.int32, device=dev)
     err = _lib().clause_eval_launch(
         actions.data_ptr(), packed_lits.data_ptr(), nc, l2, w, out.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        _build.stream(dev),
     )
     _build.raise_on("clause_eval", err, "clause_eval")
     launches += 1

@@ -5,6 +5,7 @@ oracle (ref)."""
 from .kernel import tm_interp, tm_interp_plain
 from .ops import (
     clause_ends,
+    compressed_operands,
     pack_interleaved_literals,
     plan_to_operands,
     tm_compressed_class_sums,
@@ -13,6 +14,7 @@ from .ref import tm_interp_ref
 
 __all__ = [
     "clause_ends",
+    "compressed_operands",
     "pack_interleaved_literals",
     "plan_to_operands",
     "tm_compressed_class_sums",

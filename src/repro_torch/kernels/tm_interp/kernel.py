@@ -12,6 +12,12 @@ the last clause end never emit.
 ``csrc/tm_interp.cu`` or raises; there is no fallback between the two.
 ``launches`` counts the CUDA launches and nothing else.  Packed words
 are int32 tensors holding uint32 bit patterns (``core.bits``).
+
+The kernel walks a clause table, ``clause_end`` (the emitting
+instructions in order, ``ops.clause_ends``), built on the host with the
+operands; a call that lacks it derives it on the device.  The kernel
+takes ``m_cap`` up to 65535 and literal panels of fewer than 2^30 words
+(``L2 * W``); a CUDA call beyond either raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,10 @@ from .. import _build
 
 # CUDA kernel launches made by tm_interp (the plain twin never counts)
 launches = 0
+
+# the kernel's grid.y holds the classes; literal rows are 32-bit byte offsets
+MAX_M_CAP = 65535
+MAX_LITERAL_WORDS = 1 << 30
 
 
 def tm_interp_plain(
@@ -136,18 +146,23 @@ def _lib() -> ctypes.CDLL:
 def _tm_interp_cuda(lit_idx, pol, cls, packed_lits, m_cap, clause_end):
     global launches
     dev = packed_lits.device
+    l2, w = packed_lits.shape
+    if m_cap > MAX_M_CAP or l2 * w >= MAX_LITERAL_WORDS:
+        raise ValueError(
+            f"the tm_interp kernel takes m_cap <= {MAX_M_CAP} and fewer than "
+            f"{MAX_LITERAL_WORDS} literal words, got m_cap={m_cap} and "
+            f"{l2} x {w} words"
+        )
     tensors = (lit_idx, pol, cls, packed_lits, clause_end)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("tm_interp operands must be contiguous")
-    l2, w = packed_lits.shape
-    out = torch.zeros((m_cap, 32 * w), dtype=torch.int32, device=dev)
-    if clause_end.numel() == 0:
-        return out
+    # the kernel stores every element, zeros where a class has no clauses
+    out = torch.empty((m_cap, 32 * w), dtype=torch.int32, device=dev)
     err = _lib().tm_interp_launch(
         lit_idx.data_ptr(), lit_idx.numel(), clause_end.data_ptr(),
         clause_end.numel(), pol.data_ptr(), cls.data_ptr(),
         packed_lits.data_ptr(), l2, w, m_cap, out.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        _build.stream(dev),
     )
     _build.raise_on("tm_interp", err, "tm_interp")
     launches += 1

@@ -1,7 +1,8 @@
 """Public wrappers of the plan interpreter (the twin of
 ``repro.kernels.tm_interp.ops``): ``DecodedPlan`` -> per-instruction
 operand vectors (``plan_to_operands``, which the popcount program build
-reuses) -> class sums through the ``tm_interp`` kernel
+reuses) -> the operands and clause table on the device in one copy
+(``compressed_operands``) -> class sums through the ``tm_interp`` kernel
 (``tm_compressed_class_sums``), and the literal packing it takes."""
 
 from __future__ import annotations
@@ -65,6 +66,19 @@ def clause_ends(last: np.ndarray) -> np.ndarray:
     return np.flatnonzero(np.asarray(last) == 1).astype(np.int32)
 
 
+def compressed_operands(
+    plan: DecodedPlan, i_cap: int, m_cap: int, device: torch.device
+) -> Tuple[torch.Tensor, ...]:
+    """The interpreter's operands and clause table on ``device``:
+    ``(lit_idx, last, pol, cls, clause_end)``, int32 vectors built on the
+    host (``plan_to_operands``, ``clause_ends``) into one buffer and moved
+    with one copy; each is a contiguous view of it."""
+    lit_idx, last, pol, cls = plan_to_operands(plan, i_cap, m_cap=m_cap)
+    parts = (lit_idx, last, pol, cls, clause_ends(last))
+    buf = torch.from_numpy(np.concatenate(parts)).to(device)
+    return buf.split([a.size for a in parts])
+
+
 def tm_compressed_class_sums(
     plan: DecodedPlan,
     packed_lits: torch.Tensor,  # int32[2F, W] (interleaved literal rows)
@@ -74,15 +88,10 @@ def tm_compressed_class_sums(
 ) -> torch.Tensor:
     """Compressed inference via the interpreter -> int32[m_cap, B], on the
     device of ``packed_lits`` (the kernel on CUDA, its plain twin on the
-    CPU).  The clause table is built here, on the host, with the
-    operands."""
-    lit_idx, last, pol, cls = plan_to_operands(plan, i_cap, m_cap=m_cap)
-    dev = packed_lits.device
-    return tm_interp(
-        *(torch.from_numpy(a).to(dev) for a in (lit_idx, last, pol, cls)),
-        packed_lits, m_cap=m_cap,
-        clause_end=torch.from_numpy(clause_ends(last)).to(dev),
-    )
+    CPU).  The operands and the clause table are built here, on the host,
+    and reach the device in one copy."""
+    *ops, ends = compressed_operands(plan, i_cap, m_cap, packed_lits.device)
+    return tm_interp(*ops, packed_lits, m_cap=m_cap, clause_end=ends)
 
 
 def pack_interleaved_literals(x: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,7 @@ from repro_torch.core.bits import from_u32, to_u32
 from repro_torch.core.tm import TMConfig
 from repro_torch.kernels.tm_interp import (
     clause_ends,
+    compressed_operands,
     pack_interleaved_literals,
     plan_to_operands,
     tm_compressed_class_sums,
@@ -212,3 +213,102 @@ def test_compressed_class_sums_builds_the_clause_table_from_last():
         tm_compressed_class_sums(tplan, lits, m_cap=4, i_cap=200).numpy(),
         tm_interp(*ops, lits, m_cap=4, clause_end=torch.from_numpy(ends)).numpy(),
     )
+
+
+def _walk_by_class(lit_idx, cls, pol, lits, ends, m_cap):
+    """The CUDA kernel's walk, in numpy: class m scans the clause table
+    and sums the clauses whose clamped class ``clip(cls[end])`` is m, each
+    the AND of its instruction range (ends[k-1], ends[k]]."""
+    l2, w = lits.shape
+    sums = np.zeros((m_cap, 32 * w), np.int64)
+    for m in range(m_cap):
+        for k, end in enumerate(ends):
+            if min(max(cls[end], 0), m_cap - 1) != m:
+                continue
+            acc = np.full(w, 0xFFFFFFFF, np.uint32)
+            for t in range(ends[k - 1] + 1 if k else 0, end + 1):
+                acc &= lits[min(max(lit_idx[t], 0), l2 - 1)]
+            bits = (acc[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+            sums[m] += pol[end] * bits.reshape(-1).astype(np.int64)
+    return sums
+
+
+def _bare_operands(seed, i_cap, n_inc, m_lo, m_hi):
+    """Random clause ends and a class per clause drawn from [m_lo, m_hi):
+    clauses out of class order, ids possibly outside the bank."""
+    rng = np.random.default_rng(seed)
+    lit_idx = rng.integers(0, 64, i_cap).astype(np.int32)
+    last = (rng.random(i_cap) < 0.25).astype(np.int32)
+    last[n_inc - 1] = 1
+    last[n_inc:] = 0
+    clause_of = np.cumsum(last) - last
+    n = int(last.sum())
+    pol = np.where(rng.random(n + 1) < 0.5, 1, -1).astype(np.int32)[clause_of]
+    cls = rng.integers(m_lo, m_hi, n + 1).astype(np.int32)[clause_of]
+    lits = rng.integers(0, 2**32, (64, 2), dtype=np.uint32)
+    lits[::3] = 0xFFFFFFFF  # some rows all ones, so that clauses fire
+    return lit_idx, last, pol, cls, lits
+
+
+@pytest.mark.parametrize("case", [
+    "model", "model with an empty class, m_cap above it",
+    "out of class order", "class ids out of range",
+])
+def test_class_bucketed_walk_gives_the_reference_sums(case):
+    """The CUDA kernel's split of the walk, each class summing the clauses
+    of ``clause_ends`` whose clamped class is its own, gives the JAX
+    Pallas kernel's sums (interpret mode)."""
+    m_cap = 8
+    if case.startswith("model"):
+        zero = 2 if "empty" in case else None
+        rng, _, _, jplan, tplan = _models(21, 5, 10, 32, zero_class=zero)
+        ops = plan_to_operands(tplan, 448)
+        for a, b in zip(ops, jplan_to_operands(jplan, 448)):
+            np.testing.assert_array_equal(a, b)
+        lit_idx, last, pol, cls = ops
+        x = rng.integers(0, 2, (64, 32)).astype(np.uint8)
+        lits = to_u32(pack_interleaved_literals(torch.from_numpy(x)))
+    else:
+        lo, hi = (0, m_cap) if case == "out of class order" else (-3, m_cap + 3)
+        lit_idx, last, pol, cls, lits = _bare_operands(5, 320, 300, lo, hi)
+    want = np.asarray(jtm_interp(
+        *(jnp.asarray(a) for a in (lit_idx, last, pol, cls, lits)),
+        m_cap=m_cap, block_instructions=64, block_words=1, interpret=True,
+    ))
+    ends = clause_ends(last)
+    if case == "out of class order":
+        assert np.any(np.diff(cls[ends]) < 0)
+    got = _walk_by_class(lit_idx, cls, pol, lits, ends, m_cap)
+    np.testing.assert_array_equal(got, want)
+    assert want.any()
+    if "empty" in case:
+        assert not want[2].any() and not want[5:].any()
+
+
+def test_compressed_operands_are_views_of_one_buffer():
+    """The entry point's operands and clause table reach the device in
+    one copy: five contiguous views of one buffer, equal to the JAX
+    operands and ``clause_ends``."""
+    _, _, _, jplan, tplan = _models(4, 6, 8, 20, zero_class=3)
+    got = compressed_operands(tplan, 384, 9, torch.device("cpu"))
+    assert len(got) == 5 and all(t.dtype == torch.int32 for t in got)
+    assert len({t.untyped_storage().data_ptr() for t in got}) == 1
+    assert all(t.is_contiguous() for t in got)
+    for a, b in zip(got[:4], jplan_to_operands(jplan, 384)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    np.testing.assert_array_equal(got[4].numpy(), clause_ends(got[1].numpy()))
+
+
+@pytest.mark.parametrize("limit", ["m_cap", "literal words"])
+def test_tm_interp_kernel_wrapper_refuses_sizes_past_its_limits(limit):
+    """The kernel's wrapper raises ValueError, before it touches the
+    device, for a class bank past grid.y or a literal panel whose byte
+    offsets would not fit 32 bits."""
+    v = torch.zeros(8, dtype=torch.int32)
+    ends = torch.zeros(1, dtype=torch.int32)
+    if limit == "m_cap":
+        lits, m_cap = torch.zeros((4, 1), dtype=torch.int32), ti_kernel.MAX_M_CAP + 1
+    else:  # 2^15 x 2^15 words, a broadcast view: nothing is allocated
+        lits, m_cap = torch.zeros((1, 1), dtype=torch.int32).expand(1 << 15, 1 << 15), 2
+    with pytest.raises(ValueError, match="tm_interp kernel takes"):
+        ti_kernel._tm_interp_cuda(v, v, v, lits, m_cap, ends)

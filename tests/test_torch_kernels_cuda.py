@@ -19,7 +19,11 @@ from repro_torch.kernels.clause_eval import kernel as ce_kernel
 from repro_torch.kernels.clause_eval.ref import clause_eval_ref
 from repro_torch.kernels.clause_matmul import kernel as cm_kernel
 from repro_torch.kernels.tm_interp import kernel as ti_kernel
-from repro_torch.kernels.tm_interp.ops import clause_ends, plan_to_operands
+from repro_torch.kernels.tm_interp.ops import (
+    clause_ends,
+    compressed_operands,
+    plan_to_operands,
+)
 from repro_torch.kernels.tm_popcount import kernel as popcount_kernel
 from repro_torch.kernels.tm_popcount import ops as popcount_ops
 
@@ -50,6 +54,27 @@ def test_clause_eval_kernel_matches_plain_twin(dev, nc, l2, w):
     torch.testing.assert_close(
         got.cpu(), clause_eval_ref(a.cpu(), lits.cpu()), rtol=0, atol=0
     )
+
+
+# rows off the 16-byte grain (L2 = 1567, 1563, 5: 4-byte copies, some rows
+# on the grain and some off it), NC = 1 and W = 1, a row of three staging
+# rounds with every even literal included
+@pytest.mark.parametrize("nc,l2,w,dense", [
+    (1, 1567, 9, False), (40, 1563, 1, False), (3, 5, 2, False),
+    (1, 1, 1, False), (5, 4101, 3, True),
+])
+def test_clause_eval_kernel_on_edge_shapes(dev, nc, l2, w, dense):
+    rng = np.random.default_rng(l2 + w)
+    actions = (rng.random((nc, l2)) < 0.3).astype(np.int32)
+    lits = _u32(rng, (l2, w))
+    if dense:  # every positive literal, all ones: the row fires
+        actions[:, ::2], actions[:, 1::2] = 1, 0
+        lits[::2] = 0xFFFFFFFF
+    a, packed = torch.from_numpy(actions).to(dev), from_u32(lits, dev)
+    got = ce_kernel.clause_eval(a, packed)
+    torch.testing.assert_close(got, ce_kernel.clause_eval_plain(a, packed), rtol=0, atol=0)
+    if dense:
+        assert got.any()
 
 
 # NC off the 64- and 128-clause tiles (2000, 37), B off the 256-datapoint
@@ -177,6 +202,49 @@ def test_tm_interp_kernel_matches_plain_twin(dev, i_cap_extra, w, zero_class):
     )
 
 
+def _interp_case(dev, case):
+    """Operands, literals and m_cap of one program that breaks a layout
+    of the kernel: a clause of 75 includes, clauses out of class order
+    with class ids out of range, W = 1, m_cap above the model's classes."""
+    rng = np.random.default_rng(7)
+    acts = rng.random((6, 12, 160)) < 0.05
+    m_cap, w = 6, 5
+    if case == "long clause":
+        acts[2, 3] = False
+        acts[2, 3, 0:150:2] = True  # 75 positive literals
+    plan = compress.decode_to_plan(compress.encode(TMConfig(6, 12, 80), acts))
+    ops = [torch.from_numpy(a).to(dev) for a in plan_to_operands(plan, plan.n_includes + 9)]
+    if case == "out of class order":
+        last = ops[1].cpu().numpy()
+        clause_of = np.cumsum(last) - last
+        cls = rng.integers(-3, 9, int(last.sum()) + 1).astype(np.int32)[clause_of]
+        ops[3] = torch.from_numpy(cls).to(dev)
+    if case == "W=1":
+        w = 1
+    if case == "m_cap above classes":
+        m_cap = 9
+    lits = from_u32(_u32(rng, (160, w)), dev)
+    lits[::2] = -1  # positive literals all ones, so that clauses fire
+    return plan, ops, lits, m_cap
+
+
+@pytest.mark.parametrize(
+    "case", ["long clause", "out of class order", "W=1", "m_cap above classes"]
+)
+def test_tm_interp_kernel_on_edge_programs(dev, case):
+    plan, ops, lits, m_cap = _interp_case(dev, case)
+    want = ti_kernel.tm_interp_plain(*ops, lits, m_cap)
+    got = ti_kernel.tm_interp(*ops, lits, m_cap=m_cap)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert want.any()
+    if case == "m_cap above classes":
+        assert not got[6:].any()
+    if case != "out of class order":  # the host table of the entry point
+        *hops, ends = compressed_operands(plan, ops[0].numel(), m_cap, dev)
+        got = ti_kernel.tm_interp(*hops, lits, m_cap=m_cap, clause_end=ends)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_tm_interp_kernel_stays_in_bounds_on_a_bad_clause_table(dev):
     """Entries outside [0, I_cap) are skipped and a run never starts
     before instruction 0: a malformed table reads nothing outside the
@@ -190,3 +258,17 @@ def test_tm_interp_kernel_stays_in_bounds_on_a_bad_clause_table(dev):
     torch.cuda.synchronize()
     assert got.shape == (4, 96)
     assert got.abs().max() <= 3  # at most the three in-range entries emit
+
+
+@pytest.mark.parametrize("limit", ["m_cap", "literal words"])
+def test_tm_interp_kernel_refuses_sizes_past_its_limits(dev, limit):
+    """m_cap past grid.y, or a literal panel of 2^30 words or more (its
+    byte offsets would not fit 32 bits), raises ValueError on the card."""
+    v = torch.zeros(8, dtype=torch.int32, device=dev)
+    if limit == "m_cap":
+        lits, m_cap = torch.zeros((4, 1), dtype=torch.int32, device=dev), 65536
+    else:  # a broadcast view: nothing is allocated
+        lits = torch.zeros((1, 1), dtype=torch.int32, device=dev).expand(1 << 15, 1 << 15)
+        m_cap = 2
+    with pytest.raises(ValueError, match="tm_interp kernel takes"):
+        ti_kernel.tm_interp(v, v, v, v, lits, m_cap=m_cap)
