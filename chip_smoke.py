@@ -35,10 +35,25 @@ features, ~17k includes, 8192 datapoints per flush) it
      (the faster of its two layouts of the second operand, also profiled
      for its device time); clause_eval and tm_interp are profiled alone
      for their device time and device operations per call;
+  3c. Fig-8 recalibration (``fig8_phase``) at the same width with the
+     paper's n_states 128, T 15, s 3.9: ``tm_train`` (through
+     ``fused_train_batch``) ``torch.equal`` to its plain twin over three
+     chained steps from model a's state and from an all-excluded state at
+     B = 128, 200 and 37, and its wrapper to ``tm_train_plain`` on the
+     same clause words; the packed train engine equal to the reference
+     engine; then a ``RecalController`` over an ``Accelerator`` deploys
+     model a, observes 512 labelled rows (one batch served by the
+     scheduler loop), recalibrates (fine-tune epochs on the packed
+     engine), publishes the ``TMProgram`` and hot-swaps it under queued
+     traffic, serves sums equal to the oracle of the published state and
+     is rolled back to model a, with ``compile_cache_size()`` 1 and the
+     launches of ``clause_eval``, ``tm_train`` and ``tm_popcount`` zeroed
+     before the loop and read after it; last ``fit_step`` per engine,
+     ``tm_train`` and its twin are timed and ``tm_train`` profiled;
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
-and prints a ``{"kernels": [...]}`` line (all four kernels), the card's name and power limit
+and prints a ``{"kernels": [...]}`` line (all five kernels), the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase exits nonzero before the result lines; so does a machine
 without CUDA, or a directory that lacks the repo's ``src/repro_torch``.
@@ -94,6 +109,23 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_per_call(prof, calls: int):
+    """(device us, device operations, [(name, events, total us)]) per call
+    of ``calls`` profiled calls: each kernel's mean time over the events
+    the profiler kept, times its launches per call.  The profiler can miss
+    the first launch of a session, so a kernel's events are not divided by
+    ``calls``."""
+    us, n_ops, ops = 0.0, 0, []
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total", 0)
+        if total > 0:
+            per_call = max(1, round(ev.count / calls))
+            us += total / ev.count * per_call
+            n_ops += per_call
+            ops.append((ev.key, ev.count, total))
+    return us, n_ops, ops
+
+
 def span_us(prof, first: str, last: str):
     """(median us, count) of one call's device span, from the earlier
     start to the later end of its two kernels: each kernel whose name
@@ -113,6 +145,276 @@ def span_us(prof, first: str, last: str):
         if b is not None:
             spans.append(max(a.end, b.end) - min(a.start, b.start))
     return (statistics.median(spans) if spans else float("nan")), len(spans)
+
+
+
+# integer operations of one threefry2x32 hash under a key already
+# scheduled (the counter's high word is 0, so x0 starts as the key word:
+# 1 key add, 20 rounds of add + funnel shift + XOR, 5 injections of 2
+# adds), of scheduling a key once for all its hashes (2 XORs and the 5
+# constants key + n the injections add), and of turning a hash's words
+# into a compared uniform (XOR, shift, OR, subtract, compare)
+OPS_PER_HASH = 71
+OPS_PER_KEY = 7
+OPS_PER_UNIFORM = 5
+
+
+def train_work(cfg, packed, clause_words, packed_lits, yb, key):
+    """(bytes, operations, hashes) that one ``tm_train`` call needs on
+    these inputs, whatever implements it: state in and out, clause words,
+    literals and labels each moved once; the hashes of the key derivation
+    (16 per sample, under 14 keys per sample and the call key), one
+    selection uniform per (sample, row whose update lands, clause), and
+    for each selected Type I clause the uniforms its branch reads (every
+    literal when the clause did not fire; the 0-literals, and the
+    1-literals unless the increment is certain, when it fired); 4
+    operations per selected (sample, row, clause) and literal for the
+    delta and its clip.  The selection is ``core.train.feedback_masks``."""
+    import torch
+    from repro_torch.core.train import (
+        _sample_rows, feedback_masks, feedback_thresholds, sample_keys,
+    )
+    from repro_torch.kernels.tm_train.kernel import sample_bits
+
+    C, L = cfg.n_clauses, cfg.n_literals
+    dev = packed.device
+    B = yb.shape[0]
+    rows, lands, row_keys = _sample_rows(cfg, sample_keys(key.to(dev), B), yb)
+    sat, lits = sample_bits(clause_words.reshape(cfg.n_classes, C, -1),
+                            packed_lits, rows, torch.arange(B, device=dev))
+    type1, type2 = feedback_masks(cfg, row_keys, sat,
+                                  torch.tensor((True, False), device=dev))
+    type1, type2 = type1 & lands[..., None], type2 & lands[..., None]
+    strengthen, _ = feedback_thresholds(cfg)
+    zeros = (~lits).sum(dim=1)  # 0-literals per sample
+    fired = zeros if strengthen >= 1.0 else torch.full_like(zeros, L)
+    per_clause = torch.where(sat, fired[:, None, None], L)
+    draws = int((type1 * per_clause).sum()) + C * int(lands.sum())
+    hashes = draws + 16 * B
+    n_ops = (OPS_PER_HASH * hashes + OPS_PER_KEY * (14 * B + 1)
+             + OPS_PER_UNIFORM * draws
+             + 4 * int((type1 | type2).sum()) * L + 2 * B * C)
+    n_bytes = (2 * packed.numel() + 4 * clause_words.numel()
+               + 4 * packed_lits.numel() + 4 * B)
+    return n_bytes, n_ops, hashes
+
+
+def fig8_phase(dev, acts_a, X, pred_b):
+    """Phase 3c: Fig-8 recalibration at the width of model a's actions
+    (the paper's: n_states 128, T 15, s 3.9), on ``dev``.  Returns the
+    ``tm_train`` row of the kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch.accel import Accelerator, CapacityPlan, TMProgram
+    from repro_torch.core import TMConfig, batch_class_sums, encode, include_actions
+    from repro_torch.core import prng, state_from_actions
+    from repro_torch.kernels.clause_eval import kernel as cek
+    from repro_torch.kernels.tm_popcount import kernel as tmk
+    from repro_torch.kernels.tm_train import kernel as ttk
+    from repro_torch.kernels.tm_train import pack_ta_state, unpack_ta_state
+    from repro_torch.recal import (
+        Compressor, RecalController, RecalWorker, make_train_engine,
+    )
+
+    M, C, L = acts_a.shape
+    cfg = TMConfig(n_classes=M, n_clauses=C, n_features=L // 2)
+    state_a = state_from_actions(cfg, torch.from_numpy(acts_a).to(dev))
+    starts = {"model a": state_a,
+              "all excluded": torch.ones_like(state_a)}
+    rng = np.random.default_rng(4)
+
+    def batch(n):
+        x = torch.from_numpy(rng.integers(0, 2, (n, L // 2), dtype=np.uint8)).to(dev)
+        y = torch.from_numpy(rng.integers(0, M, n).astype(np.int32)).to(dev)
+        return x, y
+
+    # -- 1. kernel vs plain twin over chained steps ------------------------
+    key = prng.key(5)
+    max_err = 0
+    for start, state0 in starts.items():
+        for B in (128, 200, 37):
+            got = want = pack_ta_state(cfg, state0).contiguous()
+            for step in range(3):
+                x, y = batch(B)
+                kb = prng.fold_in(key, step)
+                got = ttk.fused_train_batch(cfg, got, kb, x, y)
+                want = ttk.fused_train_batch_plain(cfg, want, kb, x, y)
+                torch.cuda.synchronize()
+                err = int((got.int() - want.int()).abs().max())
+                max_err = max(max_err, err)
+                if not torch.equal(got, want):
+                    fail(f"tm_train != plain twin from {start}, B={B}, step "
+                         f"{step}: max abs err {err}")
+            moved = int((got != pack_ta_state(cfg, state0)).sum())
+            print(f"parity tm_train from {start} B={B}: 3 chained steps equal, "
+                  f"{moved} TAs moved")
+    # the kernel's wrapper and its plain version on the same clause words
+    p0 = pack_ta_state(cfg, state_a).contiguous()
+    x128, y128 = batch(128)
+    plits = ttk._pack_batch(x128)
+    cw = ttk.packed_clause_words(p0.reshape(M, C, L) >= 0, plits)
+    kb = prng.fold_in(key, 9)
+    tm_args = (cfg, p0, cw, plits, y128, kb)
+    if not torch.equal(ttk.tm_train(*tm_args), ttk.tm_train_plain(*tm_args)):
+        fail("tm_train != tm_train_plain on the same clause words")
+    print("parity tm_train wrapper vs tm_train_plain: equal")
+
+    # -- 2. the packed engine against the reference engine ----------------
+    engines = {name: make_train_engine(name, cfg, device=dev)
+               for name in ("packed", "reference")}
+    steps = [batch(128) for _ in range(2)]
+    finals = {}
+    for name, eng in engines.items():
+        internal = eng.prepare(state_a)
+        for j, (x, y) in enumerate(steps):
+            internal = eng.fit_step(internal, key, x, y, step=j)
+        finals[name] = eng.canonical(internal)
+    if not torch.equal(finals["packed"], finals["reference"]):
+        fail("the packed engine's state != the reference engine's")
+    print("engines: packed == reference (parallel=True) after 2 steps at B=128")
+
+    # -- 3. the loop: deploy, observe, recalibrate, swap, rollback --------
+    X512, n_train, epochs = X[:512], 384, 2
+
+    def oracle(state, x):
+        return torch.cat([
+            batch_class_sums(cfg, state, torch.from_numpy(x[i:i + 32]).to(dev))
+            for i in range(0, x.shape[0], 32)
+        ]).cpu().numpy()
+
+    # the loop's machine: model a's actions with its TAs 8 states from the
+    # decision boundary, as a trained machine's sit (not on it, where one
+    # push flips an action)
+    include = torch.from_numpy(acts_a).to(dev)
+    state_t = torch.where(include, cfg.n_states + 8, cfg.n_states - 7).to(torch.int32)
+    # training is deterministic: a throw-away worker takes the steps the
+    # recalibration will take, so the plan is negotiated for the model it
+    # publishes (a CapacityExceeded would fail the phase)
+    rehearsal = RecalWorker(cfg, state_t, key=prng.key(6), device=dev)
+    rehearsal.fine_tune_epochs(X512[:n_train], pred_b[:n_train], epochs=epochs,
+                               batch=128)
+    model_a = encode(cfg, acts_a)
+    model_r = encode(cfg, include_actions(cfg, rehearsal.state).cpu().numpy())
+    plan = CapacityPlan.for_models([model_a, model_r], batch_words=256)
+    print(f"recal plan: {plan.as_dict()}; the recalibrated model has "
+          f"{int(include_actions(cfg, rehearsal.state).sum())} includes")
+    acc = Accelerator(plan, device=dev)
+    queued = {}
+
+    class QueueBeforeSwap(Compressor):
+        """Queues traffic right after the publication gate, so the
+        hot-swap drains it under the old program."""
+
+        def compress(self, *args, **kwargs):
+            report = super().compress(*args, **kwargs)
+            if kwargs.get("traffic_sample") is not None:
+                queued["handle"] = acc.submit("mnist", X512)
+            return report
+
+    worker = RecalWorker(cfg, state_t, key=prng.key(6), device=dev)
+    default = RecalWorker(cfg, state_t) if dev.type == "cuda" else worker
+    if default.train_engine != "packed" or default.device != dev:
+        fail(f"the default worker runs {default.train_engine} on {default.device}")
+    ctl = RecalController(
+        acc, "mnist", worker, compressor=QueueBeforeSwap(plan=plan, engine=acc),
+        buffer_batches=4, epochs_per_recal=epochs, train_batch_size=128,
+        regression_margin=1.0,  # the rollback below is forced
+    )
+    torch.cuda.synchronize()
+    for mod in (cek, ttk, tmk):
+        mod.launches = 0
+    ctl.deploy()
+    sums_a = oracle(state_a, X512)
+    if not np.array_equal(acc.class_sums("mnist", X512), sums_a):
+        fail("the deployed model's sums differ from the oracle of model a")
+    acc.start()  # the first batch is served by the scheduler loop
+    ctl.observe(X512[:128], pred_b[:128])
+    acc.stop()
+    for i in range(128, 512, 128):
+        ctl.observe(X512[i:i + 128], pred_b[i:i + 128])
+    event = ctl.recalibrate(reason="smoke")
+    published = worker.state
+    torch.cuda.synchronize()
+    if event.rolled_back or event.steps_taken != epochs * n_train // 128:
+        fail(f"recalibration went wrong: {event}")
+    if not np.array_equal(queued["handle"].result(), sums_a.argmax(1)):
+        fail("traffic queued before the swap was not served by the old model")
+    if not torch.equal(published, rehearsal.state):
+        fail("the recalibration did not reproduce the throw-away worker's state")
+    blob = TMProgram(capacity=plan, model=model_r).to_bytes()
+    if acc.installed_artifact("mnist").to_bytes() != blob:
+        fail("the installed artifact is not the recalibrated model's TMProgram")
+    if not np.array_equal(acc.class_sums("mnist", X512), oracle(published, X512)):
+        fail("served sums after the swap differ from the oracle of the published state")
+    if not acc.registry.get("mnist").provenance.startswith("recal:"):
+        fail(f"provenance {acc.registry.get('mnist').provenance!r} after the swap")
+    acc.rollback("mnist")
+    if not np.array_equal(acc.class_sums("mnist", X512), sums_a):
+        fail("the forced rollback did not restore model a")
+    if acc.compile_cache_size() != 1:
+        fail(f"compile_cache_size() == {acc.compile_cache_size()} in the recal loop")
+    torch.cuda.synchronize()
+    counts = {"clause_eval": cek.launches, "tm_train": ttk.launches,
+              "tm_popcount": tmk.launches}
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"the recal loop never launched {name}")
+    print(f"recal loop: deploy, 4 observes (one by the scheduler loop), "
+          f"{event.steps_taken} fine-tune steps, swap under queued traffic, "
+          f"rollback; holdout acc {event.holdout_acc_before:.4f} -> "
+          f"{event.holdout_acc_after:.4f}; train_s {event.train_s:.6f}, "
+          f"compress_s {event.compress_s:.6f}, swap_s {event.swap_s:.6f}; "
+          f"compression ratio {event.compression_ratio:.3f}; "
+          f"compile_cache_size 1; launches {counts}")
+
+    # -- 4. times at B = 128 ----------------------------------------------
+    packed_eng, ref_eng = engines["packed"], engines["reference"]
+    int_p, int_r = packed_eng.prepare(state_a), ref_eng.prepare(state_a)
+    x, y = steps[0]
+    fit_ms = {
+        "packed engine (clause_eval + tm_train kernels)": median_ms(
+            lambda: packed_eng.fit_step(int_p, key, x, y, step=0)),
+        "plain twin (fused_train_batch_plain)": median_ms(
+            lambda: ttk.fused_train_batch_plain(cfg, int_p, prng.fold_in(key, 0), x, y),
+            reps=3, warmup=1),
+        "reference engine (parallel=True)": median_ms(
+            lambda: ref_eng.fit_step(int_r, key, x, y, step=0), reps=3, warmup=1),
+    }
+    seq = make_train_engine("reference", cfg, parallel=False, device=dev)
+    int_s = seq.prepare(state_a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq.fit_step(int_s, key, x, y, step=0)
+    torch.cuda.synchronize()
+    fit_ms["reference engine (parallel=False, one call, host clock)"] = (
+        time.perf_counter() - t0) * 1e3
+    for name, ms in fit_ms.items():
+        print(f"time fit_step B=128 {name}: {ms:.6f} ms")
+    k_ms = median_ms(lambda: ttk.tm_train(*tm_args))
+    p_ms = median_ms(lambda: ttk.tm_train_plain(*tm_args), reps=3, warmup=1)
+    n_bytes, n_ops, hashes = train_work(*tm_args)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"time tm_train B=128: kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms "
+          f"(median of 3), bound {bound_ms:.6f} ms ({bound_by}; {n_bytes} B, "
+          f"{n_ops} ops, {hashes} hashes)")
+    for what, fn in (("tm_train", lambda: ttk.tm_train(*tm_args)),
+                     ("fit_step packed", lambda: packed_eng.fit_step(
+                         int_p, key, x, y, step=0))):
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        us, n_ops, ops = device_per_call(prof, 10)
+        for key_name, count, total in ops:
+            if key_name.startswith("(anonymous namespace)::"):
+                print(f"profile 3c {what}: {key_name[23:60]} {total / count:.3f} "
+                      f"us/launch x{count}")
+        print(f"profile 3c: {what} {us:.3f} us on the device per call, "
+              f"{n_ops} device operations per call")
+    return ("tm_train", "tm_train/kernel.py:88", counts["tm_train"], max_err,
+            (k_ms, p_ms, bound_ms, bound_by, None))
 
 
 def main() -> int:
@@ -168,7 +470,8 @@ def main() -> int:
     for name, kernels in (("clause_eval", ("clause_eval",)),
                           ("clause_matmul", ("narrow", "product")),
                           ("tm_interp", ("tm_interp",)),
-                          ("tm_popcount", ("clause_words", "reduce"))):
+                          ("tm_popcount", ("clause_words", "reduce")),
+                          ("tm_train", ("prologue", "update"))):
         for which, kname in enumerate(kernels):
             attr = _build.attributes(name, which)
             print(f"attributes {name} {kname}: numRegs {attr['regs']}, "
@@ -580,13 +883,13 @@ def main() -> int:
             for _ in range(10):
                 timed[kname][0]()
             torch.cuda.synchronize()
-        ops = [(ev.key, ev.count, getattr(ev, "device_time_total", 0))
-               for ev in prof.key_averages()]
-        ops = [op for op in ops if op[2] > 0]
-        print(f"profile 3b: {kname} alone {sum(op[2] for op in ops) / 10:.3f} "
-              f"us on the device per call, "
-              f"{sum(op[1] for op in ops) / 10:g} device operations per call: "
+        us, n_ops, ops = device_per_call(prof, 10)
+        print(f"profile 3b: {kname} alone {us:.3f} us on the device per call, "
+              f"{n_ops} device operations per call: "
               f"{[op[0][:60] for op in ops]}")
+
+    # -- 3c. Fig-8 recalibration -----------------------------------------
+    train_row = fig8_phase(dev, acts_a, X, pred_b.astype(np.int32))
 
     # -- 4. timings --------------------------------------------------------
     def kernel_bound(ops, packed):
@@ -681,6 +984,7 @@ def main() -> int:
                         ("tm_interp", "tm_interp/kernel.py:37")):
         rows.append((kname, body, path_launches[kname], new_err[kname],
                      new_timings[kname]))
+    rows.append(train_row)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -3,9 +3,11 @@
 Both packages speak numpy at their boundary: a reference TA state is an
 int32[M, C, 2F] array, a reference ``CompressedModel`` is a uint16
 instruction stream plus its dims and optional uint16 clause weights.
-These functions take exactly those numpy fields (so this module imports
-nothing of the reference) and build the port's objects.  A ``TMProgram``
-needs no conversion: its bytes load in either package.
+A reference PRNG key crosses as its two uint32 words
+(``jax.random.key_data``).  These functions take exactly those numpy
+fields (so this module imports nothing of the reference) and build the
+port's objects.  A ``TMProgram`` needs no conversion: its bytes load in
+either package.
 """
 
 from __future__ import annotations
@@ -36,6 +38,18 @@ def state_from_numpy(cfg: TMConfig, state, device=None) -> torch.Tensor:
             f"n_states={cfg.n_states}"
         )
     return torch.from_numpy(state.astype(np.int32)).to(resolve_device(device))
+
+
+def key_from_numpy(words) -> torch.Tensor:
+    """A reference key's words (numpy ``uint32[2]``, as
+    ``jax.random.key_data`` gives them) -> a ``core.prng`` key on the
+    host; ``core.prng.key_data`` is the way back."""
+    words = np.asarray(words)
+    if words.shape != (2,) or words.dtype != np.uint32:
+        raise ValueError(
+            f"a key is two uint32 words, got {words.dtype} {words.shape}"
+        )
+    return torch.from_numpy(words.astype(np.int64))
 
 
 def model_from_numpy(

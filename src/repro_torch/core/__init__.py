@@ -1,7 +1,8 @@
 """The compressed-TM core of the port: the dense model and its oracle
-(tm.py), packed-word helpers (bits.py) and the include-only instruction
-stream (compress.py).  Training, booleanization and the stream
-interpreter are not ported yet."""
+(tm.py), packed-word helpers (bits.py), the include-only instruction
+stream (compress.py), ``jax.random``'s threefry streams (prng.py) and
+training under the reference's seeding contract (train.py).
+Booleanization and the stream interpreter are not ported yet."""
 
 from .bits import (
     from_u32,
@@ -28,12 +29,22 @@ from .tm import (
     clause_outputs,
     clause_polarities,
     include_actions,
+    init_state,
     literals,
     pack_literals,
     packed_class_sums,
     predict,
     state_from_actions,
     unpack_bits,
+)
+from .train import (
+    accuracy,
+    fit,
+    fit_step,
+    sample_class_delta,
+    sample_keys,
+    train_batch,
+    train_batch_parallel,
 )
 
 __all__ = [
@@ -51,6 +62,7 @@ __all__ = [
     "encode",
     "from_u32",
     "include_actions",
+    "init_state",
     "literals",
     "lshr",
     "pack_literals",
@@ -63,4 +75,12 @@ __all__ = [
     "unpack_bits",
     "validate_roundtrip",
     "wrap_i32",
+    # training (core.train)
+    "accuracy",
+    "fit",
+    "fit_step",
+    "sample_class_delta",
+    "sample_keys",
+    "train_batch",
+    "train_batch_parallel",
 ]

@@ -42,6 +42,15 @@ class TMConfig:
         return self.n_classes * self.n_clauses * self.n_literals
 
 
+def init_state(cfg: TMConfig, key=None, *, device="cpu") -> torch.Tensor:
+    """TA states start on the Exclude side of the decision boundary (= N).
+    ``key`` is unused (deterministic init), kept for the reference's
+    signature."""
+    del key
+    shape = (cfg.n_classes, cfg.n_clauses, cfg.n_literals)
+    return torch.full(shape, cfg.n_states, dtype=torch.int32, device=device)
+
+
 def include_actions(cfg: TMConfig, state: torch.Tensor) -> torch.Tensor:
     """bool[M, C, 2F] — True where the TA action is Include."""
     return state > cfg.n_states

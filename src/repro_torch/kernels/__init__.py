@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 twin: ``tm_popcount`` (the served main path), ``tm_interp`` (the plan
-interpreter), ``clause_eval`` (dense bitpacked clauses) and
-``clause_matmul`` (clauses as an int8 tensor-core product).  ``_build``
-compiles ``csrc/*.cu`` with nvcc at first use."""
+interpreter), ``clause_eval`` (dense bitpacked clauses; also the clause
+words of training), ``clause_matmul`` (clauses as an int8 tensor-core
+product) and ``tm_train`` (the fused training step, threefry in the
+kernel).  ``_build`` compiles ``csrc/*.cu`` with nvcc at first use."""

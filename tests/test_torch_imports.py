@@ -1,7 +1,8 @@
 """The port neither leaks into the reference nor falls back on its own:
 it imports no JAX and nothing of ``repro`` (every module, the kernel
-packages ``tm_popcount``, ``tm_interp``, ``clause_eval`` and
-``clause_matmul`` among them, imports without ``nvcc``); its entry
+packages ``tm_popcount``, ``tm_interp``, ``clause_eval``,
+``clause_matmul`` and ``tm_train`` among them, imports without
+``nvcc``); its entry
 points refuse to run without a CUDA card unless ``device="cpu"`` is
 asked for; and the kernel wrappers send a CUDA tensor to the kernel,
 never to the plain twin.
@@ -22,10 +23,11 @@ from repro_torch.core.bits import from_u32
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.tm_popcount import kernel, ops
+from repro_torch.recal import RecalWorker, make_train_engine
 from repro_torch.serve_tm import TMServer
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-KERNELS = ["clause_eval", "clause_matmul", "tm_interp", "tm_popcount"]
+KERNELS = ["clause_eval", "clause_matmul", "tm_interp", "tm_popcount", "tm_train"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -63,7 +65,8 @@ def _model():
 
 
 @pytest.mark.parametrize("entry", ["Accelerator", "for_models", "TMServer",
-                                   "make_engine", "resolve_device"])
+                                   "make_engine", "resolve_device",
+                                   "RecalWorker", "make_train_engine"])
 def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is the card")
@@ -74,6 +77,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
         "TMServer": lambda: TMServer(plan),
         "make_engine": lambda: make_engine("popcount", plan),
         "resolve_device": lambda: resolve_device(),
+        "RecalWorker": lambda: RecalWorker(tm.TMConfig(3, 4, 10)),
+        "make_train_engine": lambda: make_train_engine("packed", tm.TMConfig(3, 4, 10)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -151,8 +156,18 @@ def _dense_and_interp_calls(device):
     )).to(device)
     plan = compress.decode_to_plan(_model())
     operands = [torch.from_numpy(a).to(device) for a in plan_to_operands(plan, 64)]
+    from repro_torch.core import prng
+    from repro_torch.kernels.tm_train import kernel as tt, pack_ta_state
+
+    cfg = tm.TMConfig(3, 4, 10)
+    state = pack_ta_state(cfg, torch.from_numpy(
+        rng.integers(1, 257, (3, 4, 20)).astype(np.int32))).to(device)
+    x = torch.from_numpy(rng.integers(0, 2, (37, 10), dtype=np.uint8)).to(device)
+    y = torch.from_numpy(rng.integers(0, 3, 37).astype(np.int32)).to(device)
     return [  # (..., CUDA launches per call)
         (ce, lambda: ce.clause_eval(acts, packed), "clause_eval_plain", 1),
+        (tt, lambda: tt.fused_train_batch(cfg, state, prng.key(3), x, y),
+         "tm_train_plain", 2),
         (cm, lambda: cm.clause_matmul(acts, lits), "clause_matmul_plain", 2),
         (ti, lambda: ti.tm_interp(*operands, packed, m_cap=3), "tm_interp_plain", 1),
     ]

@@ -26,6 +26,9 @@ from repro_torch.kernels.tm_interp.ops import (
 )
 from repro_torch.kernels.tm_popcount import kernel as popcount_kernel
 from repro_torch.kernels.tm_popcount import ops as popcount_ops
+from repro_torch.kernels.tm_train import kernel as tt_kernel
+from repro_torch.kernels.tm_train import pack_ta_state
+from repro_torch.core import prng
 
 pytestmark = pytest.mark.cuda
 
@@ -272,3 +275,69 @@ def test_tm_interp_kernel_refuses_sizes_past_its_limits(dev, limit):
         m_cap = 2
     with pytest.raises(ValueError, match="tm_interp kernel takes"):
         ti_kernel.tm_interp(v, v, v, v, lits, m_cap=m_cap)
+
+
+def _train_case(dev, M, C, F, B, seed, excluded=False):
+    rng = np.random.default_rng(seed)
+    cfg = TMConfig(M, C, F)
+    if excluded:  # every clause empty: training outputs 1 everywhere
+        state = np.ones((M, C, 2 * F), np.int32)
+    else:
+        state = rng.integers(1, 2 * cfg.n_states + 1, (M, C, 2 * F)).astype(np.int32)
+        state[:, 0], state[:, 1] = 1, 2 * cfg.n_states  # the walls
+        state[:, 2:] = np.where(rng.random((M, C - 2, 2 * F)) < 0.9,
+                                cfg.n_states, state[:, 2:])  # sparse includes
+    packed = pack_ta_state(cfg, torch.from_numpy(state)).to(dev)
+    batches = [(torch.from_numpy(rng.integers(0, 2, (B, F), dtype=np.uint8)).to(dev),
+                torch.from_numpy(rng.integers(0, M, B).astype(np.int32)).to(dev))
+               for _ in range(3)]
+    return cfg, packed, batches
+
+
+# small; C off a multiple of 32 with a ragged B; a sub-word B; B off the
+# update kernel's 256-sample round; the literal tile ragged (2F = 1568);
+# labels past either end, which index as the reference's (a negative one
+# counts from the end, a read clamps, a target still out of range drops
+# its update); with M = 2 and every label -1 both rows of each sample are
+# class 1, so a block lists two entries per sample
+@pytest.mark.parametrize("M,C,F,B,excluded,labels", [
+    (2, 6, 5, 16, False, None), (3, 40, 11, 33, False, None),
+    (5, 10, 16, 7, False, None), (4, 24, 12, 300, False, None),
+    (10, 30, 784, 37, False, None), (3, 12, 9, 20, True, None),
+    (3, 40, 11, 40, False, [3, -1, -4, 2**31 - 1, -(2**31), 0, 2]),
+    (2, 40, 11, 300, False, [-1]),
+])
+def test_tm_train_kernel_matches_plain_twin(dev, M, C, F, B, excluded, labels):
+    """Three chained steps: the kernel's state feeds its next step."""
+    cfg, packed, batches = _train_case(dev, M, C, F, B, M * C + B, excluded)
+    if labels is not None:
+        y = torch.tensor(np.resize(np.array(labels, np.int32), B), device=dev)
+        batches = [(x, y) for x, _ in batches]
+    got = want = packed
+    for step, (x, y) in enumerate(batches):
+        kb = prng.fold_in(prng.key(7), step)
+        before = tt_kernel.launches
+        got = tt_kernel.fused_train_batch(cfg, got, kb, x, y)
+        assert tt_kernel.launches == before + 2
+        want = tt_kernel.fused_train_batch_plain(cfg, want, kb, x, y)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not torch.equal(got, packed)
+
+
+def test_tm_train_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    cfg, packed, [(x, y), *_] = _train_case(dev, 3, 40, 11, 33, 1)
+    plits = tt_kernel._pack_batch(x)
+    cw = tt_kernel.packed_clause_words(packed.reshape(3, 40, 22) >= 0, plits)
+    key = prng.key(1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tt_kernel.tm_train(cfg, packed.transpose(0, 1), cw, plits, y, key)
+    with pytest.raises(ValueError, match="contiguous"):
+        tt_kernel.tm_train(cfg, packed, cw, plits.T.contiguous().T, y, key)
+    with pytest.raises(ValueError, match="several devices"):
+        tt_kernel.tm_train(cfg, packed, cw, plits, y.cpu(), key)
+    with pytest.raises(ValueError, match="2 <= classes"):
+        one = TMConfig(1, 40, 11)
+        tt_kernel.tm_train(one, packed[:1].contiguous(), cw[:1].contiguous(),
+                           plits, torch.zeros_like(y), key)
+    with pytest.raises(TypeError, match="int32 words"):
+        tt_kernel.tm_train(cfg, packed, cw.to(torch.int64), plits, y, key)
