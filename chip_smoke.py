@@ -50,10 +50,32 @@ features, ~17k includes, 8192 datapoints per flush) it
      launches of ``clause_eval``, ``tm_train`` and ``tm_popcount`` zeroed
      before the loop and read after it; last ``fit_step`` per engine,
      ``tm_train`` and its twin are timed and ``tm_train`` profiled;
+     Six more configurations (no boost of true positives, s 1 and 10, T 1,
+     N 8, a mix) are held to the twin over two chained steps at B = 128;
+  3d. the paper's stream interpreter and pruning (``stream_phase``):
+     ``interp_stream`` ``torch.equal`` to its plain twin at W = 256, on a
+     ragged 37 rows and at W = 1, weighted and not, and equal to the
+     oracle; ``clause_fire_counts`` on the card equal to its plain
+     version; then, with the launches of ``clause_eval``,
+     ``interp_stream`` and ``tm_popcount`` zeroed before and read after:
+     the ``interp`` and ``plan`` engines serve 8192 rows of models a -> b
+     -> a equal to the popcount-served sums and the oracle with
+     ``compile_cache_size()`` 1; ``core.runtime.Accelerator`` (batch_words
+     256), fed model a's instruction stream and a feature stream of 8192
+     rows, predicts the oracle's argmax, and ``MultiCoreAccelerator(4)``
+     the same; ``prune_exact`` and ``merge_weighted`` of a model seeded
+     with every dead-clause species serve the unpruned oracle on popcount
+     (two weight planes or more), interp and plan; ``prune_ranked`` at
+     tolerance 0.02 on 512 rows labelled by model b keeps its tolerance;
+     a ``RecalController(prune=PrunePolicy(tolerance=0.02))`` deploys,
+     recalibrates, publishes a weighted (v2) ``TMProgram`` and hot-swaps
+     it under queued traffic, serving the oracle of the published pruned
+     weights; the engines' flush, ``interp_stream`` (events, profiler,
+     bound) and the policy are timed;
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
-and prints a ``{"kernels": [...]}`` line (all five kernels), the card's name and power limit
+and prints a ``{"kernels": [...]}`` line (all six kernels), the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase exits nonzero before the result lines; so does a machine
 without CUDA, or a directory that lacks the repo's ``src/repro_torch``.
@@ -124,6 +146,20 @@ def device_per_call(prof, calls: int):
             n_ops += per_call
             ops.append((ev.key, ev.count, total))
     return us, n_ops, ops
+
+
+def device_ops(prof):
+    """[(device us, name, count)] of the operations that ran on the card in
+    a profile, largest first: the kernels and copies themselves.  The CPU
+    operators that launched them report the same device time as their
+    own, so they are left out (summing both would count each twice)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [(ev.self_device_time_total, ev.key, ev.count)
+           for ev in prof.key_averages()
+           if ev.device_type == cuda and ev.self_device_time_total > 0]
+    return sorted(ops, reverse=True)
 
 
 def span_us(prof, first: str, last: str):
@@ -248,6 +284,30 @@ def fig8_phase(dev, acts_a, X, pred_b):
             moved = int((got != pack_ta_state(cfg, state0)).sum())
             print(f"parity tm_train from {start} B={B}: 3 chained steps equal, "
                   f"{moved} TAs moved")
+    # configurations off the paper's defaults: no boost of true positives
+    # (the strengthen < 1 branch), s = 1 and 10, T = 1, N = 8, and a mix,
+    # on batches of their own (the draws of ``batch`` stay as they were)
+    rng_k = np.random.default_rng(5)
+    for kw in (dict(boost_true_positive=False), dict(specificity=1.0),
+               dict(specificity=10.0), dict(threshold=1), dict(n_states=8),
+               dict(boost_true_positive=False, specificity=1.5, threshold=3,
+                    n_states=8)):
+        cfg_k = TMConfig(n_classes=M, n_clauses=C, n_features=L // 2, **kw)
+        got = want = pack_ta_state(
+            cfg_k, state_from_actions(cfg_k, torch.from_numpy(acts_a).to(dev))
+        ).contiguous()
+        for step in range(2):
+            x = torch.from_numpy(rng_k.integers(0, 2, (128, L // 2), dtype=np.uint8)).to(dev)
+            y = torch.from_numpy(rng_k.integers(0, M, 128).astype(np.int32)).to(dev)
+            kb = prng.fold_in(key, 20 + step)
+            got = ttk.fused_train_batch(cfg_k, got, kb, x, y)
+            want = ttk.fused_train_batch_plain(cfg_k, want, kb, x, y)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            max_err = max(max_err, err)
+            if not torch.equal(got, want):
+                fail(f"tm_train != plain twin at {kw}, step {step}: max abs err {err}")
+        print(f"parity tm_train {kw} B=128: 2 chained steps equal")
     # the kernel's wrapper and its plain version on the same clause words
     p0 = pack_ta_state(cfg, state_a).contiguous()
     x128, y128 = batch(128)
@@ -413,8 +473,340 @@ def fig8_phase(dev, acts_a, X, pred_b):
                       f"us/launch x{count}")
         print(f"profile 3c: {what} {us:.3f} us on the device per call, "
               f"{n_ops} device operations per call")
-    return ("tm_train", "tm_train/kernel.py:88", counts["tm_train"], max_err,
+    return ("tm_train", "src/repro/kernels/tm_train/kernel.py:88", counts["tm_train"],
+            max_err,
             (k_ms, p_ms, bound_ms, bound_by, None))
+
+
+def dense_sums(cfg, acts, w, x, dev, chunk=256):
+    """int32 [B, M] dense oracle sums of ``acts`` (weights ``w``) on the
+    card, ``chunk`` rows at a time (each chunk holds chunk x M x C x 2F
+    booleans)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import batch_class_sums_weighted, state_from_actions
+
+    state = state_from_actions(cfg, torch.from_numpy(acts).to(dev))
+    wt = None if w is None else torch.from_numpy(np.asarray(w, np.int32)).to(dev)
+    return torch.cat([
+        batch_class_sums_weighted(cfg, state, torch.from_numpy(x[i:i + chunk]).to(dev), wt)
+        for i in range(0, x.shape[0], chunk)
+    ]).cpu().numpy()
+
+
+def messy_actions(acts):
+    """Model a's actions seeded with every dead-clause species, as
+    tests/test_prune.py:80 seeds them: all-excluded rows, a contradictory
+    clause, a cancelling duplicate pair and a same-parity pair."""
+    acts = acts.copy()
+    C = acts.shape[1]
+    acts[:, C - 1, :] = False
+    acts[0, 1] = False
+    acts[0, 1, 0] = acts[0, 1, 1] = True
+    acts[1, 0] = acts[1, 1] = False
+    acts[1, 0, 2] = acts[1, 1, 2] = True
+    acts[2, 0] = acts[2, 2] = False
+    acts[2, 0, 4] = acts[2, 2, 4] = True
+    return acts
+
+
+def stream_phase(dev, cfg, served, models, X, pred_b):
+    """Phase 3d: the paper's stream interpreter and pruning on the card, at
+    the width of models a and b (``models``: name -> (actions, weights,
+    model)).  Returns the ``interp_stream`` row of the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import prune
+    from repro_torch.accel import Accelerator, CapacityPlan
+    from repro_torch.core import decode_to_plan, decode_weights, encode, prng
+    from repro_torch.core import runtime
+    from repro_torch.core.interp import pack_features
+    from repro_torch.kernels.clause_eval import kernel as cek
+    from repro_torch.kernels.interp_stream import kernel as isk
+    from repro_torch.kernels.tm_popcount import kernel as tmk
+    from repro_torch.kernels.tm_train import kernel as ttk
+    from repro_torch.prune.rank import clause_fire_counts_plain
+    from repro_torch.recal import Compressor, RecalController, RecalWorker
+
+    M, C, L = cfg.n_classes, cfg.n_clauses, cfg.n_literals
+    I_CAP = served.instruction_capacity
+    acts_a, _, model_a = models["a"]
+    acts_b, w_b, model_b = models["b"]
+    Xt = torch.from_numpy(X).to(dev)
+
+    def imem_of(model):
+        imem = np.zeros(I_CAP, np.int32)
+        imem[: model.n_instructions] = model.instructions
+        return torch.from_numpy(imem).to(dev)
+
+    def wmem_of(model):
+        wmem = np.ones(I_CAP, np.int32)
+        wmem[: model.n_weights] = model.clause_weights
+        return torch.from_numpy(wmem).to(dev)
+
+    # -- 1. the new kernel against its twin ------------------------------
+    feats = pack_features(Xt, L // 2, 256)  # [784, 256]
+    feats37 = pack_features(Xt[:37], L // 2, 2)
+    stream_cases = {
+        "model a W=256": (imem_of(model_a), model_a.n_instructions, feats, None),
+        "model b (weighted) W=256": (imem_of(model_b), model_b.n_instructions,
+                                     feats, wmem_of(model_b)),
+        "model a ragged 37 rows": (imem_of(model_a), model_a.n_instructions,
+                                   feats37, None),
+        "model b W=1": (imem_of(model_b), model_b.n_instructions,
+                        feats[:, :1].contiguous(), wmem_of(model_b)),
+    }
+    stream_err = 0
+    for name, (imem, n_inst, f, wmem) in stream_cases.items():
+        got = isk.interp_stream(imem, n_inst, f, wmem, m_cap=M)
+        want = isk.interpret_stream_plain(imem, n_inst, f, wmem, M)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        stream_err = max(stream_err, err)
+        if not torch.equal(got, want):
+            fail(f"interp_stream != its plain twin on {name}: max abs err {err}")
+        print(f"parity interp_stream {name}: equal, sums shape {tuple(got.shape)}")
+    oracle_a = dense_sums(cfg, acts_a, None, X, dev)
+    oracle_b = dense_sums(cfg, acts_b, w_b, X, dev)
+    got = isk.interp_stream(*stream_cases["model a W=256"][:2], feats, m_cap=M)
+    if not np.array_equal(got.T.cpu().numpy(), oracle_a):
+        fail("interp_stream's sums of model a differ from the dense oracle")
+    # the traffic sweep of pruning against its plain version
+    for B in (512, 37):
+        got = prune.clause_fire_counts(cfg, acts_a, X[:B], device=dev)
+        want = clause_fire_counts_plain(cfg, acts_a, X[:B], device=dev)
+        if not np.array_equal(got, want):
+            fail(f"clause_fire_counts on the card != its plain version at B={B}")
+        print(f"parity clause_fire_counts B={B}: equal, {int(got.sum())} firings")
+
+    # the loop's machine: model a's actions 8 states off the boundary.  Its
+    # class 9 holds 30 identical positive clauses that fire iff feature 60
+    # is 1 and 30 identical negative ones that fire iff it is 0 (features
+    # 0..59 are set to 1 in the loop's traffic, and every clause of the
+    # class includes them) beside 140 contradictory clauses, and the label
+    # is 9 exactly where feature 60 is 1.  Its training sum is then +30 or
+    # -30 (|sum| >= T), so no feedback ever selects its clauses: the prune
+    # pass merges each group into one clause of weight 30, the ranked drop
+    # keeps both (they decide half the labels), and every publication is
+    # weighted (v2)
+    K = M - 1
+    acts_l = acts_a.copy()
+    acts_l[K] = False
+    acts_l[K, :, 0:120:2] = True
+    acts_l[K, 0:60:2, 120] = True  # x60
+    acts_l[K, 1:60:2, 121] = True  # NOT x60
+    acts_l[K, 60:, 122] = acts_l[K, 60:, 123] = True  # x61 AND NOT x61
+    X_loop = X[:512].copy()
+    X_loop[:, :60] = 1
+    y_loop = np.where(X_loop[:, 60] == 1, K,
+                      np.where(pred_b[:512] == K, 0, pred_b[:512])).astype(np.int32)
+    state_l = torch.where(torch.from_numpy(acts_l).to(dev), cfg.n_states + 8,
+                          cfg.n_states - 7).to(torch.int32)
+    policy = prune.PrunePolicy(tolerance=0.02)
+    n_train, epochs = 384, 2
+    rehearsal = RecalWorker(cfg, state_l, key=prng.key(7), device=dev)
+    rehearsal.fine_tune_epochs(X_loop[:n_train], y_loop[:n_train], epochs=epochs,
+                               batch=128)
+    model_l = encode(cfg, acts_l)
+    model_r = encode(cfg, (rehearsal.state > cfg.n_states).cpu().numpy())
+    loop_plan = dataclasses.replace(
+        CapacityPlan.for_models([model_l, model_r], batch_words=256), weight_planes=8
+    )
+    messy = messy_actions(acts_a)
+    torch.cuda.synchronize()
+
+    # -- 2. the main path of the phase, its launches counted ---------------
+    mods = {"clause_eval": cek, "interp_stream": isk, "tm_popcount": tmk,
+            "tm_train": ttk}
+    for mod in mods.values():
+        mod.launches = 0
+    pop = Accelerator(served, device=dev)
+    engines = {name: Accelerator(served, engine=name, device=dev)
+               for name in ("interp", "plan")}
+    blobs = {k: pop.compile(models[k][2]).to_bytes() for k in ("a", "b")}
+    oracles = {"a": oracle_a, "b": oracle_b}
+    for step, k in enumerate("aba"):
+        pop.load("mnist", blobs[k], provenance=f"swap {step}")
+        want = pop.class_sums("mnist", X)
+        if not np.array_equal(want, oracles[k]):
+            fail(f"popcount-served sums of model {k} differ from the oracle")
+        for name, acc in engines.items():
+            acc.load("mnist", blobs[k], provenance=f"swap {step}")
+            if not np.array_equal(acc.class_sums("mnist", X), want):
+                fail(f"the {name} engine's sums of model {k} (swap {step}) differ "
+                     f"from the popcount-served sums")
+    for name, acc in engines.items():
+        if acc.compile_cache_size() != 1:
+            fail(f"the {name} engine has {acc.compile_cache_size()} operand signatures")
+    print(f"engines interp, plan: 8192 rows of models a -> b -> a equal to popcount "
+          f"and the oracle, compile_cache_size 1")
+
+    # the paper's base runtime: an instruction stream, then a feature stream
+    base = runtime.Accelerator(runtime.AcceleratorConfig(batch_words=256), device=dev)
+    base.feed(runtime.build_instruction_stream(model_a))
+    preds = base.feed(runtime.build_feature_stream(X))
+    if not np.array_equal(preds, oracle_a.argmax(1)):
+        fail("core.runtime.Accelerator's predictions differ from the oracle")
+    multi = runtime.MultiCoreAccelerator(
+        4, runtime.AcceleratorConfig(batch_words=256), device=dev)
+    multi.load_model(model_a)
+    if not np.array_equal(multi.infer(X), preds):
+        fail("MultiCoreAccelerator(4) disagrees with the single core")
+    if base.compile_cache_size() != 1:
+        fail(f"core.runtime.Accelerator has {base.compile_cache_size()} signatures")
+    print("base runtime: stream-fed predictions of 8192 rows equal the oracle; "
+          "4 cores equal 1")
+
+    # the exact passes: served bit-exactly on every engine
+    t0 = time.perf_counter()
+    exact = prune.prune_exact(cfg, messy)
+    merged = prune.merge_weighted(cfg, exact.actions, exact.weights)
+    exact_s = time.perf_counter() - t0
+    m_exact = encode(cfg, exact.actions, exact.weights)
+    m_merged = encode(cfg, merged.actions, merged.weights)
+    prune_plan = CapacityPlan.for_models(
+        [encode(cfg, messy), m_exact, m_merged], batch_words=256)
+    if prune_plan.weight_planes < 2:
+        fail(f"the merged model needs {prune_plan.weight_planes} weight plane(s)")
+    oracle_m = dense_sums(cfg, messy, None, X, dev)
+    for name in ("popcount", "interp", "plan"):
+        acc = Accelerator(prune_plan, engine=name, device=dev)
+        for label, model in (("exact", m_exact), ("merged", m_merged)):
+            acc.load("m", acc.compile(model))
+            if not np.array_equal(acc.class_sums("m", X), oracle_m):
+                fail(f"the {label} model served on {name} differs from the "
+                     f"unpruned oracle")
+    print(f"prune_exact + merge_weighted: {exact.report.n_dead} dead, "
+          f"{merged.report.n_merged} merged ({exact_s:.6f} s on the host); served "
+          f"at weight_planes {prune_plan.weight_planes} on popcount, interp and "
+          f"plan equal to the unpruned oracle on 8192 rows")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranked = prune.prune_ranked(cfg, acts_a, X[:512], pred_b[:512], tolerance=0.02,
+                                device=dev)
+    ranked_s = time.perf_counter() - t0
+    rep = ranked.report
+    if rep.pruned_accuracy < rep.baseline_accuracy - 0.02:
+        fail(f"prune_ranked broke its tolerance: {rep}")
+    print(f"prune_ranked tolerance 0.02 on 512 rows labelled by model b: "
+          f"{rep.n_clauses_before} -> {rep.n_clauses_after} clauses, accuracy "
+          f"{rep.baseline_accuracy:.4f} -> {rep.pruned_accuracy:.4f}, "
+          f"{ranked_s:.6f} s")
+
+    # the loop with pruning: recalibrate -> publish (v2) -> swap under traffic
+    acc = Accelerator(loop_plan, device=dev)
+    queued = {}
+
+    class QueueBeforeSwap(Compressor):
+        """Queues traffic right after the publication gate, so the
+        hot-swap drains it under the old program."""
+
+        def compress(self, *args, **kwargs):
+            report = super().compress(*args, **kwargs)
+            if kwargs.get("traffic_sample") is not None:
+                queued["handle"] = acc.submit("mnist", X_loop)
+            return report
+
+    worker = RecalWorker(cfg, state_l, key=prng.key(7), device=dev)
+    ctl = RecalController(
+        acc, "mnist", worker, compressor=QueueBeforeSwap(plan=loop_plan, engine=acc),
+        buffer_batches=4, epochs_per_recal=epochs, train_batch_size=128,
+        regression_margin=1.0, prune=policy,
+    )
+    ctl.deploy()
+    deployed = acc.installed_artifact("mnist").model
+    old = acc.class_sums("mnist", X_loop)
+    if not np.array_equal(old, dense_sums(cfg, acts_l, None, X_loop, dev)):
+        fail("the deployed (exact + merged) model differs from the loop's oracle")
+    for i in range(0, 512, 128):
+        ctl.observe(X_loop[i:i + 128], y_loop[i:i + 128])
+    event = ctl.recalibrate(reason="smoke")
+    torch.cuda.synchronize()
+    art = acc.installed_artifact("mnist")
+    if event.rolled_back or event.prune_stages != ("exact", "merge", "ranked"):
+        fail(f"the pruned recalibration went wrong: {event}")
+    if art.format_version != 2 or not art.model.weighted:
+        fail(f"the pruned recalibration published format v{art.format_version}")
+    if not np.array_equal(queued["handle"].result(), old.argmax(1)):
+        fail("traffic queued before the pruned swap was not served by the old model")
+    if not torch.equal(worker.state, rehearsal.state):
+        fail("the recalibration did not reproduce the throw-away worker's state")
+    pub_acts, pub_w = decode_weights(art.model)
+    served_sums = acc.class_sums("mnist", X_loop)
+    if not np.array_equal(served_sums, dense_sums(cfg, pub_acts, pub_w, X_loop, dev)):
+        fail("served sums after the pruned swap differ from the oracle of the "
+             "published pruned weights")
+    if acc.compile_cache_size() != 1:
+        fail(f"compile_cache_size() == {acc.compile_cache_size()} in the pruned loop")
+    torch.cuda.synchronize()
+    counts = {name: mod.launches for name, mod in mods.items()}
+    for name in ("clause_eval", "interp_stream", "tm_popcount"):
+        if counts[name] == 0:
+            fail(f"phase 3d never launched {name}")
+    print(f"pruned recal loop: deployed {deployed.n_instructions} instructions "
+          f"(weighted {deployed.weighted}); {event.steps_taken} steps, stages "
+          f"{event.prune_stages}, {event.pruned_clauses} clauses pruned, published "
+          f"v{art.format_version} with {art.model.n_weights} weights (max "
+          f"{int(art.model.clause_weights.max())}); holdout acc "
+          f"{event.holdout_acc_before:.4f} -> {event.holdout_acc_after:.4f}; train_s "
+          f"{event.train_s:.6f}, compress_s (with pruning) {event.compress_s:.6f}, "
+          f"swap_s {event.swap_s:.6f}; compile_cache_size 1; launches {counts}")
+
+    # -- 3. times ------------------------------------------------------------
+    for name, e in engines.items():
+        e.load("mnist", blobs["a"])
+
+        def flush(e=e):
+            e.submit("mnist", X)
+            e.flush()
+
+        print(f"time flush of 8192 rows on the {name} engine (submit + flush, "
+              f"CUDA events): {median_ms(flush, reps=PLAIN_REPS, warmup=2):.6f} ms "
+              f"(median of {PLAIN_REPS})")
+        with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+        ]) as prof:
+            t0 = time.perf_counter()
+            flush()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ops = device_ops(prof)
+        busy_us = sum(op[0] for op in ops)
+        print(f"profile 3d flush {name}: wall {wall_us:.1f} us, device busy "
+              f"{busy_us:.1f} us (idle share {1 - busy_us / wall_us:.3f})")
+        for us, key, count in ops[:6]:
+            print(f"profile 3d flush {name}: {us:.1f} us  x{count}  {key[:80]}")
+    imem_a, n_a = stream_cases["model a W=256"][:2]
+    k_ms = median_ms(lambda: isk.interp_stream(imem_a, n_a, feats, m_cap=M))
+    p_ms = median_ms(lambda: isk.interpret_stream_plain(imem_a, n_a, feats, None, M),
+                     reps=3, warmup=1)
+    plan_a = decode_to_plan(model_a)
+    W = feats.shape[1]
+    # each live instruction, the feature memory and the sums moved once;
+    # one AND per include and word, 32 adds per finalized clause and word
+    n_bytes = 4 * (n_a + feats.numel() + M * 32 * W)
+    n_ops = (plan_a.n_includes + 32 * plan_a.n_clauses_total) * W
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"time interp_stream model a W=256: kernel {k_ms:.6f} ms, plain "
+          f"{p_ms:.6f} ms (median of 3), bound {bound_ms:.6f} ms ({bound_by}; "
+          f"{n_bytes} B, {n_ops} ops)")
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        for _ in range(10):
+            isk.interp_stream(imem_a, n_a, feats, m_cap=M)
+        torch.cuda.synchronize()
+    us, n_dev, _ = device_per_call(prof, 10)
+    print(f"profile 3d: interp_stream {us:.3f} us on the device per call, "
+          f"{n_dev} device operations per call")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    policy.apply(cfg, acts_a, X=X[:512], y=pred_b[:512], device=dev)
+    print(f"time PrunePolicy(tolerance=0.02).apply on model a, 512 labelled rows: "
+          f"{time.perf_counter() - t0:.6f} s (host clock)")
+    return ("interp_stream", "src/repro/core/interp.py:82", counts["interp_stream"],
+            stream_err, (k_ms, p_ms, bound_ms, bound_by, None))
 
 
 def main() -> int:
@@ -471,7 +863,8 @@ def main() -> int:
                           ("clause_matmul", ("narrow", "product")),
                           ("tm_interp", ("tm_interp",)),
                           ("tm_popcount", ("clause_words", "reduce")),
-                          ("tm_train", ("prologue", "update"))):
+                          ("tm_train", ("prologue", "update")),
+                          ("interp_stream", ("interp_stream",))):
         for which, kname in enumerate(kernels):
             attr = _build.attributes(name, which)
             print(f"attributes {name} {kname}: numRegs {attr['regs']}, "
@@ -891,6 +1284,13 @@ def main() -> int:
     # -- 3c. Fig-8 recalibration -----------------------------------------
     train_row = fig8_phase(dev, acts_a, X, pred_b.astype(np.int32))
 
+    # -- 3d. the paper's stream interpreter and pruning -------------------
+    stream_row = stream_phase(
+        dev, cfg, served,
+        {"a": (acts_a, None, model_a), "b": (acts_b, w_b, model_b)},
+        X, pred_b.astype(np.int32),
+    )
+
     # -- 4. timings --------------------------------------------------------
     def kernel_bound(ops, packed):
         """(bound ms, what bounds it, bytes, operations) on these inputs,
@@ -962,11 +1362,7 @@ def main() -> int:
         acc.submit("mnist", X)
         acc.flush()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [
-        (getattr(ev, "self_device_time_total", 0), ev.key, ev.count)
-        for ev in prof.key_averages()
-    ]
-    dev = sorted((d for d in dev if d[0] > 0), reverse=True)
+    dev = device_ops(prof)
     busy_us = sum(d[0] for d in dev)
     print(
         f"profile flush: wall {wall_us:.1f} us, device busy {busy_us:.1f} us "
@@ -977,19 +1373,19 @@ def main() -> int:
 
     # -- 5. result lines ---------------------------------------------------
     k_ms, p_ms, bound_ms, bound_by = timings["main path a@P=3"]
-    rows = [("tm_popcount", "tm_popcount/kernel.py:128", main_launches,
-             max_err, (k_ms, p_ms, bound_ms, bound_by, None))]
+    rows = [("tm_popcount", "src/repro/kernels/tm_popcount/kernel.py:128",
+             main_launches, max_err, (k_ms, p_ms, bound_ms, bound_by, None))]
     for kname, body in (("clause_eval", "clause_eval/kernel.py:28"),
                         ("clause_matmul", "clause_matmul/kernel.py:28"),
                         ("tm_interp", "tm_interp/kernel.py:37")):
-        rows.append((kname, body, path_launches[kname], new_err[kname],
-                     new_timings[kname]))
-    rows.append(train_row)
+        rows.append((kname, f"src/repro/kernels/{body}", path_launches[kname],
+                     new_err[kname], new_timings[kname]))
+    rows += [train_row, stream_row]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"src/repro_torch/csrc/{name}.cu",
-        "replaces": f"src/repro/kernels/{body}",
+        "replaces": body,
         "launches": n,
         "max_abs_err": err,
         "ms": t[0],

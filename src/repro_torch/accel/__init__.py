@@ -4,7 +4,8 @@
                 derived from a model population) + CapacityExceeded
   engine.py     the Engine plugin protocol: @register_engine, priority,
                 make_engine (with ``device=``), select_engine
-  engines.py    the built-in plugin: popcount (the Hopper kernel)
+  engines.py    the built-in plugins: interp (the interp_stream kernel),
+                plan (plain PyTorch), popcount (the tm_popcount kernel)
   program.py    TMProgram — the versioned, checksummed, wire-portable
                 artifact, byte-identical to the reference package's
   facade.py     Accelerator — negotiate, compile, ship, load, serve
@@ -26,7 +27,7 @@ from .engine import (
     register_engine,
     select_engine,
 )
-from .engines import PopcountEngine
+from .engines import InterpEngine, PlanEngine, PopcountEngine
 from .program import FORMAT_VERSION, TMProgram
 from .facade import Accelerator
 
@@ -48,8 +49,10 @@ __all__ = [
     "EngineFault",
     "FORMAT_VERSION",
     "HEADROOM_KNOBS",
+    "InterpEngine",
     "NodeDown",
     "Overloaded",
+    "PlanEngine",
     "PopcountEngine",
     "QUANTA",
     "ServingNode",

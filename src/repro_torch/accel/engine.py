@@ -127,6 +127,7 @@ class EngineBase:
         self.device = resolve_device(device)
         self._staging_t: Optional[torch.Tensor] = None
         self._staging: Optional[np.ndarray] = None
+        self._staging_dev: Optional[torch.Tensor] = None
         self._signatures: set = set()
 
     def on_device(self):
@@ -201,6 +202,18 @@ class EngineBase:
                 pin_memory=self.device.type == "cuda",
             )
         return self._staging_t
+
+    def staged_on_device(self) -> torch.Tensor:
+        """The staging block on the engine's device: on CUDA copied into a
+        preallocated device buffer without blocking (the tensor is pinned;
+        the caller's device-to-host copy of its result waits for it, so
+        the block is free again when the engine call returns)."""
+        staged = self.staging_tensor
+        if self.device.type != "cuda":
+            return staged
+        if self._staging_dev is None:
+            self._staging_dev = torch.empty_like(staged, device=self.device)
+        return self._staging_dev.copy_(staged, non_blocking=True)
 
     @property
     def staging(self) -> np.ndarray:

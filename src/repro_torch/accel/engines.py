@@ -1,18 +1,26 @@
-"""The built-in engine plugin of the port: ``popcount``.
+"""The built-in engine plugins of the port: interp / plan / popcount.
 
-``PopcountEngine`` is the popcount bitplane path (``kernels.tm_popcount``):
-clause outputs stay packed 32-bit words until a clause boundary; class
-sums come from popcounts against per-class polarity-bank bitplanes.  On
-CUDA it launches the hand-written Hopper kernel, on the CPU (only when
-asked for with ``device="cpu"``) its plain PyTorch twin.
+One ``CompressedModel`` contract, three realizations, all bit-exact
+against the ``core.tm.batch_class_sums`` oracle:
 
-The program (operand vectors, the clause-end table and the class masks,
-in instruction space for the plain twin and in clause space for the
-kernel) moves to the device once, at ``program()``.  Each call copies the
-pinned staging block into a preallocated device buffer without blocking
-(the counterpart of the reference engine donating its feature buffer),
-packs the literals on the device and runs the kernel.  The ``interp``,
-``plan`` and ``sharded`` engines of the reference are not ported yet.
+  * ``interp``   — the paper-faithful stream interpreter
+    (``core.interp.interpret_stream``): the hand-written ``interp_stream``
+    kernel walks the fixed-depth instruction memory.
+  * ``plan``     — the decoded-plan path (``core.interp.plan_class_sums``):
+    gather + segmented reduction in plain PyTorch, parallel across
+    includes and datapoints.
+  * ``popcount`` — the popcount bitplane path (``kernels.tm_popcount``):
+    clause outputs stay packed 32-bit words until a clause boundary; class
+    sums come from popcounts against per-class polarity-bank bitplanes.
+
+On CUDA the kernels are the hand-written Hopper ones; on the CPU (only
+when asked for with ``device="cpu"``) their plain PyTorch twins.  Every
+engine moves its decoded program to its device once, at ``program()``,
+and counts the operand signatures it runs with
+(``compile_cache_size()``); each call copies the pinned staging block
+into a preallocated device buffer without blocking (the counterpart of
+the reference engine donating its feature buffer) and builds its operand
+there.  The reference's ``sharded`` engine is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,11 +32,106 @@ import torch
 
 from ..core.bits import from_u32
 from ..core.compress import CompressedModel, decode_to_plan
-from ..core.tm import pack_literals
+from ..core.interp import interpret_stream, pack_features, pad_plan, plan_class_sums
+from ..core.tm import literals, pack_literals
 from ..kernels.tm_popcount.kernel import clause_space_masks, tm_popcount
 from ..kernels.tm_popcount.ops import clause_ends, plan_to_popcount_operands
-from .capacity import CapacityPlan
+from .capacity import CapacityExceeded
 from .engine import EngineBase, register_engine
+
+
+@register_engine("interp", priority=10)
+class InterpEngine(EngineBase):
+    """Paper-faithful fixed-capacity stream interpreter (Fig 4.4-4.6)."""
+
+    validated_knobs = (
+        "instruction_capacity", "feature_capacity", "class_capacity",
+    )
+
+    def _program(self, model: CompressedModel, decoded=None) -> Dict[str, Any]:
+        p = self.plan
+        imem = np.zeros(p.instruction_capacity, np.int32)
+        imem[: model.n_instructions] = model.instructions
+        # per-clause weight memory, indexed by the interpreter's finalize
+        # ordinal (non-empty clauses in emission order).  Always present at
+        # instruction-capacity depth (a clause needs >= 1 instruction, so
+        # it can never be too small) and all ones for weightless models:
+        # one operand signature across weighted and weightless swaps.
+        wmem = np.ones(p.instruction_capacity, np.int32)
+        if model.clause_weights is not None:
+            wmem[: model.n_weights] = model.clause_weights
+        return {
+            "imem": torch.from_numpy(imem).to(self.device),
+            "wmem": torch.from_numpy(wmem).to(self.device),
+            "n_inst": model.n_instructions,
+            "n_classes": model.n_classes,
+            "n_features": model.n_features,
+        }
+
+    def class_sums(self, prog: Dict[str, Any], x: np.ndarray) -> np.ndarray:
+        p = self.plan
+        B = x.shape[0]
+        self._pad_x(x)
+        with self.on_device():
+            packed = pack_features(
+                self.staged_on_device(), p.feature_capacity, p.batch_words
+            )
+            self._record_signature(prog["imem"], prog["wmem"], packed)
+            sums = interpret_stream(
+                prog["imem"], prog["n_inst"], packed, B, prog["wmem"],
+                m_cap=p.class_capacity,
+            )
+            return sums[: prog["n_classes"], :B].T.cpu().numpy()
+
+
+@register_engine("plan", priority=20)
+class PlanEngine(EngineBase):
+    """Decoded-plan engine: gather + segmented min/sum (beyond-paper)."""
+
+    # clause_capacity bounds the segment table: per-class max clauses <=
+    # clause_capacity (with n_classes <= class_capacity) implies
+    # n_clauses_total <= clause_total_capacity.  instruction_capacity
+    # bounds the include operand vectors only: boundary EXTENDs never
+    # materialize in the decoded plan
+    validated_knobs = (
+        "instruction_capacity", "feature_capacity", "class_capacity",
+        "clause_capacity",
+    )
+    instruction_metric = "includes"
+    needs_decoded_plan = True
+
+    def _program(self, model: CompressedModel, decoded=None) -> Dict[str, Any]:
+        p = self.plan
+        plan = decoded if decoded is not None else decode_to_plan(model)
+        if plan.n_clauses_total > p.clause_total_capacity:
+            # unreachable after validation; kept as a corruption guard on
+            # the class_cap*clause_cap-deep segment table
+            raise CapacityExceeded(
+                "clause_capacity",
+                -(-plan.n_clauses_total // p.class_capacity),
+                p.clause_capacity,
+                "total clauses",
+            )
+        names = ("li", "ci", "cc", "cp")
+        operands = pad_plan(plan, p.instruction_capacity, p.clause_total_capacity)
+        prog = {k: torch.from_numpy(a).to(self.device)
+                for k, a in zip(names, operands)}
+        prog.update(n_classes=model.n_classes, n_features=model.n_features)
+        return prog
+
+    def class_sums(self, prog: Dict[str, Any], x: np.ndarray) -> np.ndarray:
+        p = self.plan
+        B = x.shape[0]
+        self._pad_x(x)
+        with self.on_device():
+            lits = literals(self.staged_on_device())  # [B_cap, 2*F_cap]
+            operands = (prog["li"], prog["ci"], prog["cc"], prog["cp"], lits)
+            self._record_signature(*operands)
+            sums = plan_class_sums(
+                *operands, n_clause_cap=p.clause_total_capacity,
+                m_cap=p.class_capacity,
+            )
+            return sums[:B, : prog["n_classes"]].cpu().numpy()
 
 
 @register_engine("popcount", priority=30)
@@ -42,10 +145,6 @@ class PopcountEngine(EngineBase):
     )
     instruction_metric = "includes"  # operand vectors hold includes only
     needs_decoded_plan = True
-
-    def __init__(self, plan: CapacityPlan, device=None):
-        super().__init__(plan, device)
-        self._x_dev = None  # device copy of the staging block
 
     def _program(self, model: CompressedModel, decoded=None) -> Dict[str, Any]:
         p = self.plan
@@ -84,12 +183,7 @@ class PopcountEngine(EngineBase):
         B = x.shape[0]
         self._pad_x(x)
         with self.on_device():
-            staged = self.staging_tensor
-            if self.device.type == "cuda":
-                if self._x_dev is None:
-                    self._x_dev = torch.empty_like(staged, device=self.device)
-                staged = self._x_dev.copy_(staged, non_blocking=True)
-            packed = pack_literals(staged)
+            packed = pack_literals(self.staged_on_device())
             operands = (
                 prog["lit_idx"], prog["last"], prog["mask_pos"],
                 prog["mask_neg"], packed,

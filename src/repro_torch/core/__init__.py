@@ -1,8 +1,10 @@
 """The compressed-TM core of the port: the dense model and its oracle
-(tm.py), packed-word helpers (bits.py), the include-only instruction
-stream (compress.py), ``jax.random``'s threefry streams (prng.py) and
-training under the reference's seeding contract (train.py).
-Booleanization and the stream interpreter are not ported yet."""
+(tm.py), packed-word helpers (bits.py), booleanization (booleanize.py),
+the include-only instruction stream (compress.py), the stream interpreter
+and the decoded-plan executor (interp.py), the stream protocol and the
+paper's base and multi-core accelerators (runtime.py), ``jax.random``'s
+threefry streams (prng.py) and training under the reference's seeding
+contract (train.py)."""
 
 from .bits import (
     from_u32,
@@ -12,6 +14,7 @@ from .bits import (
     to_u32,
     wrap_i32,
 )
+from .booleanize import Booleanizer, booleanize_images, to_device_bool
 from .compress import (
     CompressedModel,
     DecodedPlan,
@@ -28,12 +31,14 @@ from .tm import (
     class_sums,
     clause_outputs,
     clause_polarities,
+    dense_model_bytes,
     include_actions,
     init_state,
     literals,
     pack_literals,
     packed_class_sums,
     predict,
+    predict_weighted,
     state_from_actions,
     unpack_bits,
 )
@@ -48,17 +53,20 @@ from .train import (
 )
 
 __all__ = [
+    "Booleanizer",
     "CompressedModel",
     "DecodedPlan",
     "TMConfig",
     "batch_class_sums",
     "batch_class_sums_weighted",
+    "booleanize_images",
     "class_sums",
     "clause_outputs",
     "clause_polarities",
     "decode",
     "decode_to_plan",
     "decode_weights",
+    "dense_model_bytes",
     "encode",
     "from_u32",
     "include_actions",
@@ -69,8 +77,10 @@ __all__ = [
     "packed_class_sums",
     "popcount",
     "predict",
+    "predict_weighted",
     "segmented_and_scan",
     "state_from_actions",
+    "to_device_bool",
     "to_u32",
     "unpack_bits",
     "validate_roundtrip",

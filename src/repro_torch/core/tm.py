@@ -128,6 +128,18 @@ def predict(cfg: TMConfig, state: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     return batch_class_sums(cfg, state, x).argmax(dim=-1).to(torch.int32)
 
 
+def predict_weighted(
+    cfg: TMConfig,
+    state: torch.Tensor,
+    x: torch.Tensor,
+    weights: "torch.Tensor | None" = None,
+) -> torch.Tensor:
+    """Batched weighted prediction: argmax of the weighted class sums
+    (the first class on ties, as ``jnp.argmax``)."""
+    sums = batch_class_sums_weighted(cfg, state, x, weights)
+    return sums.argmax(dim=-1).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Bitpacked inference (paper §3: 32 datapoints per machine word)
 # ---------------------------------------------------------------------------
@@ -169,3 +181,7 @@ def packed_class_sums(
     sums = (bits * pol[None, :, None]).sum(dim=1, dtype=torch.int32)
     return sums.T
 
+
+def dense_model_bytes(cfg: TMConfig) -> int:
+    """Uncompressed model footprint: 1 bit per TA action."""
+    return (cfg.n_tas + 7) // 8

@@ -2,5 +2,6 @@
 twin: ``tm_popcount`` (the served main path), ``tm_interp`` (the plan
 interpreter), ``clause_eval`` (dense bitpacked clauses; also the clause
 words of training), ``clause_matmul`` (clauses as an int8 tensor-core
-product) and ``tm_train`` (the fused training step, threefry in the
-kernel).  ``_build`` compiles ``csrc/*.cu`` with nvcc at first use."""
+product), ``tm_train`` (the fused training step, threefry in the
+kernel) and ``interp_stream`` (the paper's stream interpreter).
+``_build`` compiles ``csrc/*.cu`` with nvcc at first use."""

@@ -9,14 +9,15 @@ the port of ``repro.recal``.
                     to the reference package)
   worker.py         RecalWorker — incremental fold-in-seeded fine-tuning
                     through a TrainEngine; produces the new TA state
-  compressor.py     Compressor — include-stream encoding with a bit-exact
-                    dense-oracle publication gate; produces WHAT ships
+  compressor.py     Compressor — an optional prune policy
+                    (``repro_torch.prune``), include-stream encoding with
+                    a bit-exact dense-oracle publication gate; produces
+                    WHAT ships
   controller.py     RecalController — drain-then-swap publication through
                     the serving node, post-swap validation, auto-rollback
 
 Training runs on the CUDA card unless ``device="cpu"`` is passed.  The
-reference's mesh-sharded train engine and clause pruning are not ported
-yet.
+reference's mesh-sharded train engine is not ported yet.
 """
 
 from .compressor import CompressionReport, Compressor

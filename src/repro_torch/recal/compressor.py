@@ -13,8 +13,8 @@ the model must FIT the plan (``CapacityExceeded`` otherwise), and the
 report carries the stamped, checksummed ``TMProgram`` artifact, byte
 for byte the reference's for the same state.  The include actions are
 computed on the state's device and brought to the host once; the rest
-is numpy.  Clause pruning (``repro.prune``) is not ported yet: a
-``prune=`` policy raises ``NotImplementedError``.
+is numpy, except a prune policy's ranked pass, which runs on the state's
+device.
 """
 
 from __future__ import annotations
@@ -29,14 +29,7 @@ from ..accel.capacity import CapacityPlan
 from ..accel.program import TMProgram
 from ..core.compress import CompressedModel, encode, validate_roundtrip
 from ..core.tm import TMConfig, include_actions
-
-
-def refuse_prune(prune) -> None:
-    if prune is not None:
-        raise NotImplementedError(
-            "clause pruning (the reference's repro.prune; ROADMAP queue 1 "
-            "item 6) is not ported to repro_torch yet: pass prune=None"
-        )
+from ..prune import PrunePolicy, PruneReport
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +41,7 @@ class CompressionReport:
     compression_ratio: float
     probe_rows: int
     artifact: Optional[TMProgram] = None  # stamped when a plan was given
-    prune: None = None  # a prune report, once pruning is ported
+    prune: Optional[PruneReport] = None  # stamped when a policy ran
     # per-knob (name, provisioned, reclaimable) rows with reclaimable > 0:
     # how much tighter a renegotiated envelope could be for THIS artifact
     shrink: Tuple[Tuple[str, int, int], ...] = ()
@@ -84,15 +77,30 @@ class Compressor:
         *,
         traffic_sample: Optional[np.ndarray] = None,
         labels: Optional[np.ndarray] = None,
-        prune=None,
+        prune: Optional[PrunePolicy] = None,
     ) -> CompressionReport:
         """Encode + validate.  ``state`` is the canonical TA tensor (any
         device) or numpy array; ``traffic_sample`` ({0,1}[B, F]) extends
         the deterministic probe with rows of the live distribution.
-        ``labels`` would feed a prune policy's ranked drop."""
-        refuse_prune(prune)
-        actions = include_actions(cfg, torch.as_tensor(state)).cpu().numpy()
-        model = encode(cfg, actions)
+
+        ``prune`` runs the compression pass between train and publish, on
+        the state's device: the policy sees the traffic sample (ranking
+        and the ranked drop's gate, when ``labels`` accompany it) and the
+        PRUNED actions and weights are what gets encoded; the roundtrip
+        gate then proves the pruned weighted stream against the pruned
+        dense oracle, so an unsound prune is refused publication exactly
+        like a corrupt encode."""
+        state = torch.as_tensor(state)
+        actions = include_actions(cfg, state).cpu().numpy()
+        weights = None
+        prune_report = None
+        if prune is not None:
+            result = prune.apply(
+                cfg, actions, X=traffic_sample, y=labels, device=state.device
+            )
+            actions, weights = result.actions, result.weights
+            prune_report = result.report
+        model = encode(cfg, actions, clause_weights=weights)
         rng = np.random.default_rng(self.probe_seed)
         probe = rng.integers(
             0, 2, (self.probe_rows, cfg.n_features)
@@ -105,7 +113,7 @@ class Compressor:
                     f"got {sample.shape}"
                 )
             probe = np.concatenate([probe, sample], axis=0)
-        validate_roundtrip(cfg, actions, model, probe)
+        validate_roundtrip(cfg, actions, model, probe, clause_weights=weights)
         artifact = None
         if self.engine is not None:
             # the capacity half of the gate: the exact check the target
@@ -129,5 +137,6 @@ class Compressor:
             compression_ratio=model.compression_ratio(cfg),
             probe_rows=probe.shape[0],
             artifact=artifact,
+            prune=prune_report,
             shrink=shrink,
         )

@@ -19,8 +19,7 @@ node (a ``TMServer`` or the ``Accelerator`` façade):
      rolls the slot back and reverts the worker to its pre-recal state.
 
 Every completed run is a ``RecalEvent`` in ``controller.events`` and a
-``recals``/``rollbacks`` tick in the server's metrics.  Clause pruning
-between train and publish (``prune=``) is not ported yet and raises.
+``recals``/``rollbacks`` tick in the server's metrics.
 """
 
 from __future__ import annotations
@@ -33,7 +32,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .compressor import Compressor, refuse_prune
+from ..prune import PrunePolicy
+from .compressor import Compressor
 from .monitor import DriftMonitor
 from .worker import RecalWorker
 
@@ -52,7 +52,7 @@ class RecalEvent:
     holdout_acc_after: float
     rolled_back: bool
     compression_ratio: float
-    # prune-pass stamp (stays empty until pruning is ported)
+    # prune-pass stamp (defaults keep pre-prune consumers working)
     pruned_clauses: int = 0
     prune_stages: tuple = ()
     # (knob, provisioned, reclaimable) envelope-renegotiation diagnostics
@@ -74,9 +74,8 @@ class RecalController:
         min_buffer_rows: Optional[int] = None,
         holdout_fraction: float = 0.25,
         regression_margin: float = 0.02,
-        prune=None,
+        prune: Optional[PrunePolicy] = None,
     ):
-        refuse_prune(prune)
         self.server = server
         self.slot = slot
         self.worker = worker
@@ -104,13 +103,20 @@ class RecalController:
         self._buffer: deque = deque(maxlen=buffer_batches)
         self._refreeze_pending = False
         self.events: list = []
+        # the model-compression pass between train and publish: deploy()
+        # has no labelled holdout, so only the bit-exact passes run there;
+        # recalibrate() hands the policy the holdout slice, enabling the
+        # tolerance-gated ranked drop too
+        self.prune = prune
 
     # -- deployment ----------------------------------------------------------
 
     def deploy(self, provenance: str = "deploy") -> None:
         """Compress the worker's current state and install it into the
         slot (initial deployment or a manual push)."""
-        report = self.compressor.compress(self.worker.cfg, self.worker.state)
+        report = self.compressor.compress(
+            self.worker.cfg, self.worker.state, prune=self.prune
+        )
         self.server.register(
             self.slot,
             report.artifact if report.artifact is not None else report.model,
@@ -203,7 +209,7 @@ class RecalController:
             t0 = time.perf_counter()
             report = self.compressor.compress(
                 self.worker.cfg, self.worker.state,
-                traffic_sample=X_hold, labels=Y_hold,
+                traffic_sample=X_hold, labels=Y_hold, prune=self.prune,
             )
             compress_s = time.perf_counter() - t0
 
@@ -245,6 +251,12 @@ class RecalController:
             rolled_back=rolled_back,
             compression_ratio=report.compression_ratio,
             reclaimable=report.shrink,
+            pruned_clauses=(
+                0 if report.prune is None else report.prune.n_removed
+            ),
+            prune_stages=(
+                () if report.prune is None else report.prune.stages
+            ),
         )
         self.events.append(event)
         return event

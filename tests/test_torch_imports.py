@@ -1,11 +1,12 @@
 """The port neither leaks into the reference nor falls back on its own:
 it imports no JAX and nothing of ``repro`` (every module, the kernel
 packages ``tm_popcount``, ``tm_interp``, ``clause_eval``,
-``clause_matmul`` and ``tm_train`` among them, imports without
-``nvcc``); its entry
-points refuse to run without a CUDA card unless ``device="cpu"`` is
-asked for; and the kernel wrappers send a CUDA tensor to the kernel,
-never to the plain twin.
+``clause_matmul``, ``tm_train`` and ``interp_stream``, ``prune``,
+``data`` and ``core.runtime`` among them, imports without ``nvcc``);
+its entry points refuse to run without a CUDA card unless
+``device="cpu"`` is asked for; the kernel wrappers send a CUDA tensor to
+the kernel, never to the plain twin; and the deprecated executor shim
+warns once per process.
 """
 
 import os
@@ -27,7 +28,12 @@ from repro_torch.recal import RecalWorker, make_train_engine
 from repro_torch.serve_tm import TMServer
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-KERNELS = ["clause_eval", "clause_matmul", "tm_interp", "tm_popcount", "tm_train"]
+KERNELS = ["clause_eval", "clause_matmul", "interp_stream", "tm_interp", "tm_popcount",
+           "tm_train"]
+MODULES = ["repro_torch.core.runtime", "repro_torch.core.interp",
+           "repro_torch.core.booleanize", "repro_torch.data.pipeline",
+           "repro_torch.prune.rank", "repro_torch.prune.passes",
+           "repro_torch.serve_tm.executors"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -39,7 +45,7 @@ leaks = sorted(m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "jaxlib"))
                or m == "repro" or m.startswith("repro."))
 kernels = sorted({n.split(".")[2] for n in names if n.startswith("repro_torch.kernels.")})
-print(len(names), ",".join(kernels), leaks)
+print(len(names), ",".join(kernels), ",".join(names), leaks)
 """
 
 
@@ -52,9 +58,10 @@ def test_port_imports_no_jax_and_no_reference():
         },
     )
     assert out.returncode == 0, out.stderr
-    n_modules, kernels, leaks = out.stdout.split(maxsplit=2)
-    assert int(n_modules) >= 30
+    n_modules, kernels, names, leaks = out.stdout.split(maxsplit=3)
+    assert int(n_modules) >= 40
     assert set(KERNELS) <= set(kernels.split(","))
+    assert set(MODULES) <= set(names.split(","))
     assert leaks.strip() == "[]"
 
 
@@ -66,11 +73,23 @@ def _model():
 
 @pytest.mark.parametrize("entry", ["Accelerator", "for_models", "TMServer",
                                    "make_engine", "resolve_device",
-                                   "RecalWorker", "make_train_engine"])
+                                   "RecalWorker", "make_train_engine",
+                                   "interp engine", "plan engine",
+                                   "core.runtime.Accelerator", "MultiCoreAccelerator",
+                                   "to_device_bool", "clause_fire_counts",
+                                   "vote_contribution", "prune_ranked",
+                                   "PrunePolicy.apply"])
 def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is the card")
+    from repro_torch import prune
+    from repro_torch.core import booleanize, runtime
+
     plan = CapacityPlan.for_models([_model()])
+    cfg = tm.TMConfig(3, 4, 10)
+    acts = np.random.default_rng(0).random((3, 4, 20)) < 0.2
+    x = np.zeros((8, 10), np.uint8)
+    y = np.zeros(8, np.int32)
     calls = {
         "Accelerator": lambda: Accelerator(plan),
         "for_models": lambda: Accelerator.for_models([_model()]),
@@ -79,6 +98,16 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
         "resolve_device": lambda: resolve_device(),
         "RecalWorker": lambda: RecalWorker(tm.TMConfig(3, 4, 10)),
         "make_train_engine": lambda: make_train_engine("packed", tm.TMConfig(3, 4, 10)),
+        "interp engine": lambda: make_engine("interp", plan),
+        "plan engine": lambda: make_engine("plan", plan),
+        "core.runtime.Accelerator": lambda: runtime.Accelerator(),
+        "MultiCoreAccelerator": lambda: runtime.MultiCoreAccelerator(2),
+        "to_device_bool": lambda: booleanize.to_device_bool(x),
+        "clause_fire_counts": lambda: prune.clause_fire_counts(cfg, acts, x),
+        "vote_contribution": lambda: prune.vote_contribution(cfg, acts, x),
+        "prune_ranked": lambda: prune.prune_ranked(cfg, acts, x, y, tolerance=0.1),
+        "PrunePolicy.apply": lambda: prune.PrunePolicy(tolerance=0.1).apply(
+            cfg, acts, X=x, y=y),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -145,6 +174,8 @@ def _dense_and_interp_calls(device):
     ``device``."""
     from repro_torch.kernels.clause_eval import kernel as ce
     from repro_torch.kernels.clause_matmul import kernel as cm
+    from repro_torch.core.interp import pack_features
+    from repro_torch.kernels.interp_stream import kernel as ist
     from repro_torch.kernels.tm_interp import kernel as ti
     from repro_torch.kernels.tm_interp.ops import plan_to_operands
 
@@ -164,12 +195,17 @@ def _dense_and_interp_calls(device):
         rng.integers(1, 257, (3, 4, 20)).astype(np.int32))).to(device)
     x = torch.from_numpy(rng.integers(0, 2, (37, 10), dtype=np.uint8)).to(device)
     y = torch.from_numpy(rng.integers(0, 3, 37).astype(np.int32)).to(device)
+    model = _model()
+    imem = torch.from_numpy(model.instructions.astype(np.int32)).to(device)
+    feats = pack_features(x, 16, 2)
     return [  # (..., CUDA launches per call)
         (ce, lambda: ce.clause_eval(acts, packed), "clause_eval_plain", 1),
         (tt, lambda: tt.fused_train_batch(cfg, state, prng.key(3), x, y),
          "tm_train_plain", 2),
         (cm, lambda: cm.clause_matmul(acts, lits), "clause_matmul_plain", 2),
         (ti, lambda: ti.tm_interp(*operands, packed, m_cap=3), "tm_interp_plain", 1),
+        (ist, lambda: ist.interp_stream(imem, model.n_instructions, feats, m_cap=3),
+         "interpret_stream_plain", 1),
     ]
 
 
@@ -187,3 +223,23 @@ def test_cuda_tensors_launch_the_new_kernels_not_their_twins(monkeypatch):
         call()
         torch.cuda.synchronize()
         assert module.launches == before + n, module.__name__
+
+
+def test_executor_shim_warns_once_per_process():
+    probe = (
+        "import importlib, warnings\n"
+        "warnings.simplefilter('always')\n"
+        "with warnings.catch_warnings(record=True) as seen:\n"
+        "    import repro_torch.serve_tm.executors as ex\n"
+        "    importlib.import_module('repro_torch.serve_tm.executors')\n"
+        "    import repro_torch.serve_tm.executors\n"
+        "e = ex.make_executor('interp', ex.ServeCapacity(), device='cpu')\n"
+        "print(sum(issubclass(w.category, DeprecationWarning) for w in seen),\n"
+        "      type(e).__name__, ex.PlanExecutor.__name__, ex.PopcountExecutor.__name__)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", probe], capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(SRC)},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["1", "InterpEngine", "PlanEngine", "PopcountEngine"]

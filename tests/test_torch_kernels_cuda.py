@@ -277,9 +277,9 @@ def test_tm_interp_kernel_refuses_sizes_past_its_limits(dev, limit):
         ti_kernel.tm_interp(v, v, v, v, lits, m_cap=m_cap)
 
 
-def _train_case(dev, M, C, F, B, seed, excluded=False):
+def _train_case(dev, M, C, F, B, seed, excluded=False, **cfg_kw):
     rng = np.random.default_rng(seed)
-    cfg = TMConfig(M, C, F)
+    cfg = TMConfig(M, C, F, **cfg_kw)
     if excluded:  # every clause empty: training outputs 1 everywhere
         state = np.ones((M, C, 2 * F), np.int32)
     else:
@@ -324,6 +324,27 @@ def test_tm_train_kernel_matches_plain_twin(dev, M, C, F, B, excluded, labels):
     assert not torch.equal(got, packed)
 
 
+# the configurations the paper's defaults never reach: no boost of true
+# positives (the strengthen < 1 branch), s = 1 and 10, T = 1, N = 8, and
+# all of them off the defaults at once
+@pytest.mark.parametrize("cfg_kw", [
+    dict(boost_true_positive=False), dict(specificity=1.0), dict(specificity=10.0),
+    dict(threshold=1), dict(n_states=8),
+    dict(boost_true_positive=False, specificity=1.5, threshold=3, n_states=8),
+], ids=["no-boost", "s=1", "s=10", "T=1", "N=8", "mixed"])
+@pytest.mark.parametrize("M,C,F,B", [(3, 40, 11, 33), (10, 30, 784, 37)])
+def test_tm_train_kernel_on_other_configs(dev, cfg_kw, M, C, F, B):
+    """Three chained steps, as the default-config cases above."""
+    cfg, packed, batches = _train_case(dev, M, C, F, B, M + C + B, **cfg_kw)
+    got = want = packed
+    for step, (x, y) in enumerate(batches):
+        kb = prng.fold_in(prng.key(8), step)
+        got = tt_kernel.fused_train_batch(cfg, got, kb, x, y)
+        want = tt_kernel.fused_train_batch_plain(cfg, want, kb, x, y)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not torch.equal(got, packed)
+
+
 def test_tm_train_wrapper_refuses_what_the_kernel_does_not_take(dev):
     cfg, packed, [(x, y), *_] = _train_case(dev, 3, 40, 11, 33, 1)
     plits = tt_kernel._pack_batch(x)
@@ -341,3 +362,159 @@ def test_tm_train_wrapper_refuses_what_the_kernel_does_not_take(dev):
                            plits, torch.zeros_like(y), key)
     with pytest.raises(TypeError, match="int32 words"):
         tt_kernel.tm_train(cfg, packed, cw.to(torch.int64), plits, y, key)
+
+
+# -- the stream interpreter -------------------------------------------------------
+
+
+def _stream(dev, case, w):
+    """(imem, n_inst, feature memory, weight memory or None, m_cap) of one
+    stream case on ``dev``: a weightless or weighted model, one with
+    EXTENDs (literal slots past 4095), one that does not open with a
+    toggle (E and CC flipped), one whose classes run past m_cap, one with
+    m_cap above its classes, or a random word stream."""
+    rng = np.random.default_rng(len(case) + w)
+    M, C, F, m_cap, extra = 10, 30, 100, 10, 13
+    if case == "EXTENDs":
+        M, C, F = 2, 3, 2100
+    acts = rng.random((M, C, 2 * F)) < (0.002 if case == "EXTENDs" else 0.04)
+    if case == "EXTENDs":
+        acts[0, 0, 4150] = acts[1, 2, [4101, 4198]] = True
+    weights = rng.integers(1, 9, (M, C)) if case == "weighted" else None
+    model = compress.encode(TMConfig(M, C, F), acts, weights)
+    ins = model.instructions.astype(np.int64)
+    if case == "no opening toggle":
+        ins ^= (1 << 15) | (1 << 14)
+    if case == "random words":
+        ins = rng.integers(0, 1 << 16, 3000)
+    m_cap = {"classes past m_cap": 4, "m_cap above classes": 23}.get(case, m_cap)
+    imem = np.zeros(ins.size + extra, np.int32)
+    imem[: ins.size] = ins
+    feats = from_u32(_u32(rng, (F + 5, w)), dev)
+    wmem = None
+    if weights is not None:
+        wmem = np.ones(imem.size, np.int32)
+        wmem[: model.n_weights] = model.clause_weights
+        wmem = torch.from_numpy(wmem).to(dev)
+    elif case == "random words":
+        wmem = torch.from_numpy(rng.integers(-3, 9, 40).astype(np.int32)).to(dev)
+    return torch.from_numpy(imem).to(dev), int(ins.size), feats, wmem, m_cap
+
+
+@pytest.mark.parametrize("case", [
+    "weightless", "weighted", "EXTENDs", "no opening toggle", "classes past m_cap",
+    "m_cap above classes", "random words",
+])
+@pytest.mark.parametrize("w", [1, 37, 256])
+def test_interp_stream_kernel_matches_plain_twin(dev, case, w):
+    from repro_torch.kernels.interp_stream import kernel as is_kernel
+    from repro_torch.kernels.interp_stream.ref import interpret_stream_ref
+
+    imem, n_inst, feats, wmem, m_cap = _stream(dev, case, w)
+    before = is_kernel.launches
+    got = is_kernel.interp_stream(imem, n_inst, feats, wmem, m_cap=m_cap)
+    assert is_kernel.launches == before + 1
+    want = is_kernel.interpret_stream_plain(imem, n_inst, feats, wmem, m_cap)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert want.any()
+    if w == 1:
+        torch.testing.assert_close(
+            got, interpret_stream_ref(imem, n_inst, feats, wmem, m_cap), rtol=0, atol=0)
+    # fewer live instructions than the stream holds: the rest do nothing
+    part = is_kernel.interp_stream(imem, n_inst // 3, feats, wmem, m_cap=m_cap)
+    torch.testing.assert_close(
+        part, is_kernel.interpret_stream_plain(imem, n_inst // 3, feats, wmem, m_cap),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("f_cap,m_cap", [(4096, 64), (784, 400), (20000, 1190)])
+def test_interp_stream_kernel_on_large_memories(dev, f_cap, m_cap):
+    """Feature and class-sum memories that need more than 48 KB of shared
+    memory (the opt-in path), up to the block's limit."""
+    from repro_torch.kernels.interp_stream import kernel as is_kernel
+
+    rng = np.random.default_rng(f_cap)
+    acts = rng.random((12, 20, 200)) < 0.05
+    model = compress.encode(TMConfig(12, 20, 100), acts)
+    imem = torch.from_numpy(model.instructions.astype(np.int32)).to(dev)
+    feats = from_u32(_u32(rng, (f_cap, 3)), dev)
+    got = is_kernel.interp_stream(imem, model.n_instructions, feats, m_cap=m_cap)
+    want = is_kernel.interpret_stream_plain(imem, model.n_instructions, feats, None, m_cap)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got.any()
+
+
+def test_interp_stream_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.interp_stream import kernel as is_kernel
+
+    imem = torch.zeros(64, dtype=torch.int32, device=dev)
+    feats = torch.zeros((100, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="interp_stream kernel takes"):
+        is_kernel.interp_stream(imem, 10, feats, m_cap=2000)
+    with pytest.raises(ValueError, match="contiguous"):
+        is_kernel.interp_stream(imem, 10, feats.T.contiguous().T, m_cap=2)
+    with pytest.raises(ValueError, match="is on"):
+        is_kernel.interp_stream(imem.cpu(), 10, feats, m_cap=2)
+
+
+# -- pruning on the card -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B", [1, 37, 512])
+def test_clause_fire_counts_on_the_card_match_the_plain_version(dev, B):
+    from repro_torch import prune
+    from repro_torch.kernels.clause_eval import kernel as ce
+    from repro_torch.prune.rank import clause_fire_counts_plain
+
+    rng = np.random.default_rng(B)
+    cfg = TMConfig(10, 30, 100)
+    acts = rng.random((10, 30, 200)) < 0.02
+    acts[0, 0] = False
+    acts[0, 0, 1::2] = True  # negated literals only: would fire on pad rows
+    acts[1, 1] = False  # empty: never fires
+    X = rng.integers(0, 2, (B, 100)).astype(np.uint8)
+    before = ce.launches
+    got = prune.clause_fire_counts(cfg, acts, X, device=dev)
+    assert ce.launches == before + 1
+    want = clause_fire_counts_plain(cfg, acts, X, device=dev)
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+    assert np.array_equal(got, prune.clause_fire_counts(cfg, acts, X, device="cpu"))
+    assert got[1, 1] == 0
+
+
+def test_prune_policy_on_the_card_equals_the_cpu(dev):
+    from repro_torch import prune
+
+    rng = np.random.default_rng(3)
+    cfg = TMConfig(4, 20, 30)
+    acts = rng.random((4, 20, 60)) < 0.06
+    acts[:, 3] = acts[:, 5]  # duplicate pairs to merge
+    X = rng.integers(0, 2, (77, 30)).astype(np.uint8)
+    y = rng.integers(0, 4, 77).astype(np.int32)
+    policy = prune.PrunePolicy(tolerance=0.05)
+    got, want = (policy.apply(cfg, acts, X=X, y=y, device=d) for d in (dev, "cpu"))
+    assert np.array_equal(got.actions, want.actions)
+    assert (got.weights is None) == (want.weights is None)
+    if got.weights is not None:
+        assert np.array_equal(got.weights, want.weights)
+    assert got.report == want.report
+
+
+@pytest.mark.parametrize("engine", ["interp", "plan"])
+def test_engines_on_the_card_serve_the_cpu_sums(dev, engine):
+    from repro_torch.accel import Accelerator
+
+    rng = np.random.default_rng(4)
+    cfg = TMConfig(5, 10, 30)
+    a = compress.encode(cfg, rng.random((5, 10, 60)) < 0.08)
+    b = compress.encode(cfg, rng.random((5, 10, 60)) < 0.1, rng.integers(1, 6, (5, 10)))
+    x = rng.integers(0, 2, (70, 30), dtype=np.uint8)
+    accs = [Accelerator.for_models([a, b], batch_words=3, engine=e, device=d)
+            for e, d in ((engine, dev), ("popcount", "cpu"))]
+    for model in (a, b, a):
+        sums = []
+        for acc in accs:
+            acc.load("s", acc.compile(model))
+            sums.append(acc.class_sums("s", x))
+        np.testing.assert_array_equal(*sums)
+    assert accs[0].compile_cache_size() == 1

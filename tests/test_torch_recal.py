@@ -21,6 +21,7 @@ from repro.accel import CapacityPlan as JCapacityPlan
 from repro.core import tm as jtm
 from repro.core import train as jtrain
 from repro.data.pipeline import TMDatasetSpec, booleanized_tm_dataset
+from repro.prune import PrunePolicy as JPrunePolicy
 from repro.recal import Compressor as JCompressor
 from repro.recal import DriftMonitor as JDriftMonitor
 from repro.recal import RecalController as JRecalController
@@ -29,6 +30,7 @@ from repro.serve_tm import TMServer as JTMServer
 from repro_torch import convert
 from repro_torch.accel import CapacityExceeded, CapacityPlan
 from repro_torch.core import prng, tm
+from repro_torch.prune import PrunePolicy
 from repro_torch.recal import (
     TRAIN_ENGINES,
     Compressor,
@@ -230,8 +232,13 @@ def test_compressor_bytes_match_the_reference(with_plan):
     assert (got.artifact is None) == (want.artifact is None) == (not with_plan)
     if with_plan:
         assert got.artifact.to_bytes() == want.artifact.to_bytes()
-    with pytest.raises(NotImplementedError, match="pruning"):
-        pc.compress(cfg, torch.from_numpy(state), prune=object())
+    # the exact prune passes run before the encode, as in the reference
+    got = pc.compress(cfg, torch.from_numpy(state), traffic_sample=traffic,
+                      prune=PrunePolicy(merge=False))
+    want = jc.compress(jcfg, jnp.asarray(state), traffic_sample=traffic,
+                       prune=JPrunePolicy(merge=False))
+    assert np.array_equal(got.model.instructions, want.model.instructions)
+    assert dataclasses.asdict(got.prune) == dataclasses.asdict(want.prune)
     with pytest.raises(ValueError, match="traffic_sample"):
         pc.compress(cfg, torch.from_numpy(state), traffic_sample=traffic[:, :5])
     if with_plan:
@@ -328,5 +335,4 @@ def test_controller_rolls_back_a_bad_recalibration():
     assert np.array_equal(server.infer("edge", xt), expected)
     assert np.array_equal(bad.snapshot(), good.snapshot())
     assert server.compile_cache_size() == 1
-    with pytest.raises(NotImplementedError, match="pruning"):
-        RecalController(server, "edge", bad, prune=object())
+    assert RecalController(server, "edge", bad, prune=PrunePolicy()).prune == PrunePolicy()
