@@ -8,7 +8,9 @@ At the paper's MNIST-scale width (10 classes x 200 clauses x 784
 features, ~17k includes, 8192 datapoints per flush) it
 
   1. builds every kernel under src/repro_torch/csrc (``nvcc``, sm_90a)
-     and prints the registers and local (spill) bytes of every kernel;
+     and prints the registers and local (spill) bytes of every kernel,
+     and the SASS opcode counts of ``tm_train``'s kernels (per threefry
+     draw too) where ``cuobjdump`` is found;
   2. holds each kernel against its plain PyTorch twin on the card with
      ``torch.equal`` (integer sums: tolerance 0), one weight plane and
      three, plus a ragged batch, a program with a zero-include class, and
@@ -49,13 +51,15 @@ features, ~17k includes, 8192 datapoints per flush) it
      is rolled back to model a, with ``compile_cache_size()`` 1 and the
      launches of ``clause_eval``, ``tm_train`` and ``tm_popcount`` zeroed
      before the loop and read after it; last ``fit_step`` per engine,
-     ``tm_train`` and its twin are timed and ``tm_train`` profiled;
+     ``tm_train`` and its twin are timed, ``tm_train`` profiled and the SM
+     clock read (``nvidia-smi``) while it runs;
      Six more configurations (no boost of true positives, s 1 and 10, T 1,
      N 8, a mix) are held to the twin over two chained steps at B = 128;
   3d. the paper's stream interpreter and pruning (``stream_phase``):
      ``interp_stream`` ``torch.equal`` to its plain twin at W = 256, on a
      ragged 37 rows and at W = 1, weighted and not, and equal to the
-     oracle; ``clause_fire_counts`` on the card equal to its plain
+     oracle; the tables of its decode launch equal to
+     ``decode_stream_plain``'s; ``clause_fire_counts`` on the card equal to its plain
      version; then, with the launches of ``clause_eval``,
      ``interp_stream`` and ``tm_popcount`` zeroed before and read after:
      the ``interp`` and ``plan`` engines serve 8192 rows of models a -> b
@@ -70,8 +74,8 @@ features, ~17k includes, 8192 datapoints per flush) it
      a ``RecalController(prune=PrunePolicy(tolerance=0.02))`` deploys,
      recalibrates, publishes a weighted (v2) ``TMProgram`` and hot-swaps
      it under queued traffic, serving the oracle of the published pruned
-     weights; the engines' flush, ``interp_stream`` (events, profiler,
-     bound) and the policy are timed;
+     weights; the engines' flush, ``interp_stream`` (events, profiler per
+     launch, bound) and the policy are timed;
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
@@ -131,6 +135,37 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def clocks_during(fn, seconds: float = 1.5):
+    """The SM clock (MHz, ``nvidia-smi``), sampled every ~0.2 s while
+    ``fn`` runs back to back for ``seconds``."""
+    import threading
+
+    import torch
+
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=30)
+            samples.append(smi.stdout.strip())
+            stop.wait(0.2)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join()
+    return samples
+
+
 def device_per_call(prof, calls: int):
     """(device us, device operations, [(name, events, total us)]) per call
     of ``calls`` profiled calls: each kernel's mean time over the events
@@ -182,6 +217,99 @@ def span_us(prof, first: str, last: str):
             spans.append(max(a.end, b.end) - min(a.start, b.start))
     return (statistics.median(spans) if spans else float("nan")), len(spans)
 
+
+def cuobjdump():
+    """Path of ``cuobjdump`` (the CUDA toolkit's, else the copy Triton
+    ships), or None."""
+    import os
+    import shutil
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cands = [shutil.which("cuobjdump"), os.path.join(home, "bin", "cuobjdump")]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if c and os.access(c, os.X_OK)), None)
+
+
+_BRANCHES = ("BRA", "BRX", "EXIT", "RET", "CALL", "BSSY", "BSYNC", "WARPSYNC",
+             "BAR", "JMP")
+
+
+def sass_blocks(library: str, kernel: str):
+    """[(opcode, ...)] straight-line blocks of the SASS of the first kernel
+    whose mangled name holds ``kernel`` in a built library (cuobjdump
+    -sass), split at branches and branch targets; a string that says why
+    when the SASS cannot be read.  Opcodes keep their modifiers
+    (``IMAD.IADD``, ``SHF.L.W.U32``) and drop predicates."""
+    import re
+
+    tool = cuobjdump()
+    if tool is None:
+        return "cuobjdump not found"
+    try:
+        run = subprocess.run([tool, "-sass", library], capture_output=True,
+                             text=True, timeout=120)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"cuobjdump failed: {e}"
+    if run.returncode != 0:
+        return f"cuobjdump exited {run.returncode}: {run.stderr.strip()[:200]}"
+    text = run.stdout
+    body, inside, seen = [], False, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line and not seen  # the first match alone
+            seen = seen or inside
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
+        if inside and m:
+            body.append((int(m.group(1), 16), m.group(3), m.group(4)))
+    targets = {int(t, 16) for _, op, rest in body if op.split(".")[0] in _BRANCHES
+               for t in re.findall(r"0x([0-9a-f]+)", rest)}
+    blocks, cur = [], []
+    for addr, op, _ in body:
+        if addr in targets and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append(op)
+        if op.split(".")[0] in _BRANCHES:
+            blocks.append(cur)
+            cur = []
+    if cur:
+        blocks.append(cur)
+    return blocks
+
+
+def print_sass(tag: str, library: str, kernel: str):
+    """Print the opcode counts of ``kernel`` in ``library``: the whole
+    kernel, and the largest straight-line block, where a whole inlined
+    threefry draw sits; says why and returns when the SASS cannot be
+    read, as a missing SASS count fails nothing."""
+    from collections import Counter
+
+    blocks = sass_blocks(library, kernel)
+    if isinstance(blocks, str):
+        print(f"sass {tag} {kernel}: {blocks}, no SASS counts")
+        return
+    whole = Counter(op for b in blocks for op in b)
+    big = max(blocks, key=len, default=[])
+    print(f"sass {tag} {kernel}: {sum(whole.values())} instructions in "
+          f"{len(blocks)} blocks: {dict(whole.most_common())}")
+    print(f"sass {tag} {kernel} largest block: {len(big)} instructions: "
+          f"{dict(Counter(big).most_common())}")
+    # a threefry draw rotates 20 times (SHF.L.W, or IMAD.WIDE.U32 where a
+    # rotate is a multiply): the block's draws, and its counts per draw
+    rotates = sum(n for op, n in Counter(big).items()
+                  if op.startswith(("SHF.L.W", "IMAD.WIDE.U32")))
+    if rotates >= 20:
+        draws = round(rotates / 20)
+        per = {op: round(n / draws, 2) for op, n in Counter(big).most_common()}
+        print(f"sass {tag} {kernel} per draw ({draws} in the block): "
+              f"{round(len(big) / draws, 2)} instructions: {per}")
 
 
 # integer operations of one threefry2x32 hash under a key already
@@ -451,6 +579,8 @@ def fig8_phase(dev, acts_a, X, pred_b):
     for name, ms in fit_ms.items():
         print(f"time fit_step B=128 {name}: {ms:.6f} ms")
     k_ms = median_ms(lambda: ttk.tm_train(*tm_args))
+    print(f"clock 3c: SM clock (MHz) during back-to-back tm_train calls: "
+          f"{clocks_during(lambda: ttk.tm_train(*tm_args))}")
     p_ms = median_ms(lambda: ttk.tm_train_plain(*tm_args), reps=3, warmup=1)
     n_bytes, n_ops, hashes = train_work(*tm_args)
     bound_ms, bound_by = bound(n_bytes, n_ops)
@@ -568,6 +698,22 @@ def stream_phase(dev, cfg, served, models, X, pred_b):
         if not torch.equal(got, want):
             fail(f"interp_stream != its plain twin on {name}: max abs err {err}")
         print(f"parity interp_stream {name}: equal, sums shape {tuple(got.shape)}")
+    # launch A's tables against the plain decode, on the served memory and
+    # cut short (the evaluation reads nothing else)
+    for name in ("model a W=256", "model b (weighted) W=256"):
+        imem, n_inst, f, wmem = stream_cases[name]
+        for n in (n_inst, n_inst // 3):
+            got_t = isk.decode_stream(imem, n, f.shape[0], M, wmem)
+            want_t = isk.decode_stream_plain(imem, n, f.shape[0], M, wmem)
+            torch.cuda.synchronize()
+            if got_t.n_mid != want_t.n_mid or not all(
+                torch.equal(a, b) for a, b in zip(got_t[:-1], want_t[:-1])
+            ):
+                fail(f"interp_stream's decode tables != decode_stream_plain on "
+                     f"{name}, {n} instructions")
+        print(f"parity interp_stream decode {name}: tables equal "
+              f"({got_t.include_row.numel()} includes, {got_t.clause_row.numel()} "
+              f"clauses at {n} instructions; all instructions too)")
     oracle_a = dense_sums(cfg, acts_a, None, X, dev)
     oracle_b = dense_sums(cfg, acts_b, w_b, X, dev)
     got = isk.interp_stream(*stream_cases["model a W=256"][:2], feats, m_cap=M)
@@ -797,9 +943,14 @@ def stream_phase(dev, cfg, served, models, X, pred_b):
         for _ in range(10):
             isk.interp_stream(imem_a, n_a, feats, m_cap=M)
         torch.cuda.synchronize()
-    us, n_dev, _ = device_per_call(prof, 10)
+    us, n_dev, ops = device_per_call(prof, 10)
+    for key_name, count, total in ops:
+        print(f"profile 3d interp_stream: {key_name[:60]} {total / count:.3f} "
+              f"us/launch x{count}")
+    span, n_span = span_us(prof, "decode_kernel", "evaluate_kernel")
     print(f"profile 3d: interp_stream {us:.3f} us on the device per call, "
-          f"{n_dev} device operations per call")
+          f"{n_dev} device operations per call; span decode..evaluate "
+          f"{span:.3f} us (median of {n_span})")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     policy.apply(cfg, acts_a, X=X[:512], y=pred_b[:512], device=dev)
@@ -864,12 +1015,14 @@ def main() -> int:
                           ("tm_interp", ("tm_interp",)),
                           ("tm_popcount", ("clause_words", "reduce")),
                           ("tm_train", ("prologue", "update")),
-                          ("interp_stream", ("interp_stream",))):
+                          ("interp_stream", ("decode", "evaluate"))):
         for which, kname in enumerate(kernels):
             attr = _build.attributes(name, which)
             print(f"attributes {name} {kname}: numRegs {attr['regs']}, "
                   f"localSizeBytes {attr['local_bytes']}, "
                   f"sharedSizeBytes {attr['shared_bytes']}")
+    for kname in ("prologue_kernel", "update_kernel"):
+        print_sass("tm_train", str(_build.library_path("tm_train")), kname)
 
     # -- the paper-MNIST models (seed 0 is benchmarks' synthetic model) -----
     cfg = TMConfig(n_classes=10, n_clauses=200, n_features=784)

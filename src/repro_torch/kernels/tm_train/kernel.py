@@ -19,8 +19,10 @@ under the same call key:
 
 ``tm_train`` is step 2 given the clause words: on CPU tensors it runs
 ``tm_train_plain``, on CUDA tensors it launches ``csrc/tm_train.cu`` (two
-launches: a prologue per sample, then the update, one thread per TA) or
-raises; there is no fallback between the two.  ``fused_train_batch`` is
+launches: a prologue per sample that also draws each clause's selection
+once, then the update, one thread per TA) or raises; there is no
+fallback between the two.  The kernel compares each uniform with a
+probability as an integer (``uniform_threshold``).  ``fused_train_batch`` is
 both steps; on the CPU it is ``fused_train_batch_plain``.  ``launches``
 counts the CUDA launches and nothing else.
 
@@ -35,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -57,6 +60,16 @@ launches = 0
 
 # the update kernel's grid: literal tiles x clauses x classes
 _MAX_GRID_YZ = 65535
+
+
+def uniform_threshold(p) -> np.ndarray:
+    """``ceil(p * 2**23)`` of float32 probabilities ``p``, clipped into
+    [0, 2**23] (NaN: 0), as uint32: a uniform drawn from 32 random bits is
+    ``u = (bits >> 9) * 2**-23`` exactly, so ``u < p`` iff ``bits >> 9 <
+    uniform_threshold(p)``.  The product by a power of two is exact in
+    float32, as it is in the kernel's prologue."""
+    t = np.ceil(np.asarray(p, np.float32) * np.float32(1 << 23))
+    return np.clip(np.nan_to_num(t, nan=0.0), 0, 1 << 23).astype(np.uint32)
 
 
 def _clause_words(actions, packed_lits, evaluate):
@@ -179,11 +192,17 @@ def tm_train(
 
 
 @functools.cache
+def _thresholds(cfg: TMConfig) -> tuple:
+    """The kernel's integer (strengthen, weaken) thresholds of ``cfg``."""
+    return tuple(int(t) for t in uniform_threshold(feedback_thresholds(cfg)))
+
+
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("tm_train")
-    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.tm_train_launch.argtypes = [
-        p, p, p, p, i, i, i, i, i, u, u, i, i, f, f, p, p, p,
+        p, p, p, p, i, i, i, i, i, u, u, i, i, u, u, p, p, p,
     ]
     lib.tm_train_launch.restype = i
     return lib
@@ -207,13 +226,14 @@ def _tm_train_cuda(cfg, packed, clause_words, packed_lits, yb, key):
     if batch == 0:
         return out.copy_(packed)
     k0, k1 = (int(w) & prng.M32 for w in key.tolist())  # a CUDA key syncs
-    strengthen, weaken = feedback_thresholds(cfg)
-    # per (sample, touched row): class, p_sel and three keys (8 words)
-    rows = torch.empty(batch * 2 * 8, dtype=torch.int32, device=dev)
+    strengthen, weaken = _thresholds(cfg)
+    # per (sample, touched row): class, selection threshold and two keys
+    # (6 words), the class again, and a selection bit per clause
+    scratch = torch.empty(batch * 2 * (7 + -(-C // 32)), dtype=torch.int32, device=dev)
     err = _lib().tm_train_launch(
         packed.data_ptr(), clause_words.data_ptr(), packed_lits.data_ptr(),
         labels.data_ptr(), M, C, L, packed_lits.shape[1], batch, k0, k1,
-        cfg.n_states, cfg.threshold, strengthen, weaken, rows.data_ptr(),
+        cfg.n_states, cfg.threshold, strengthen, weaken, scratch.data_ptr(),
         out.data_ptr(), _build.stream(dev),
     )
     _build.raise_on("tm_train", err, "tm_train")

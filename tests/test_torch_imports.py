@@ -205,7 +205,7 @@ def _dense_and_interp_calls(device):
         (cm, lambda: cm.clause_matmul(acts, lits), "clause_matmul_plain", 2),
         (ti, lambda: ti.tm_interp(*operands, packed, m_cap=3), "tm_interp_plain", 1),
         (ist, lambda: ist.interp_stream(imem, model.n_instructions, feats, m_cap=3),
-         "interpret_stream_plain", 1),
+         "interpret_stream_plain", 2),
     ]
 
 

@@ -306,6 +306,7 @@ def _train_case(dev, M, C, F, B, seed, excluded=False, **cfg_kw):
     (10, 30, 784, 37, False, None), (3, 12, 9, 20, True, None),
     (3, 40, 11, 40, False, [3, -1, -4, 2**31 - 1, -(2**31), 0, 2]),
     (2, 40, 11, 300, False, [-1]),
+    (10, 30, 784, 256, False, None), (3, 40, 11, 1, False, None),
 ])
 def test_tm_train_kernel_matches_plain_twin(dev, M, C, F, B, excluded, labels):
     """Three chained steps: the kernel's state feeds its next step."""
@@ -413,7 +414,7 @@ def test_interp_stream_kernel_matches_plain_twin(dev, case, w):
     imem, n_inst, feats, wmem, m_cap = _stream(dev, case, w)
     before = is_kernel.launches
     got = is_kernel.interp_stream(imem, n_inst, feats, wmem, m_cap=m_cap)
-    assert is_kernel.launches == before + 1
+    assert is_kernel.launches == before + 2  # decode, then evaluate
     want = is_kernel.interpret_stream_plain(imem, n_inst, feats, wmem, m_cap)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert want.any()
@@ -427,10 +428,79 @@ def test_interp_stream_kernel_matches_plain_twin(dev, case, w):
         rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("case", [
+    "weightless", "weighted", "EXTENDs", "no opening toggle", "classes past m_cap",
+    "m_cap above classes", "random words",
+])
+def test_interp_stream_decode_tables_match_the_plain_decode(dev, case):
+    """Launch A's tables against ``decode_stream_plain`` on the same
+    stream, for all live instructions, a third of them and none."""
+    from repro_torch.kernels.interp_stream import kernel as is_kernel
+
+    imem, n_inst, feats, wmem, m_cap = _stream(dev, case, 1)
+    for n in (n_inst, n_inst // 3, 0, imem.numel() + 9):
+        got = is_kernel.decode_stream(imem, n, feats.shape[0], m_cap, wmem)
+        want = is_kernel.decode_stream_plain(imem, n, feats.shape[0], m_cap, wmem)
+        assert got.n_mid == want.n_mid
+        for name, a, b in zip(got._fields[:-1], got[:-1], want[:-1]):
+            assert torch.equal(a, b), (name, n)
+
+
+def test_interp_stream_decode_carries_across_tiles(dev):
+    """A stream of many decode tiles (1,024 instructions each), random
+    words, weighted: the look-back from tile to tile."""
+    from repro_torch.kernels.interp_stream import kernel as is_kernel
+
+    rng = np.random.default_rng(11)
+    imem = torch.from_numpy(rng.integers(0, 1 << 16, 20000).astype(np.int32)).to(dev)
+    wmem = torch.from_numpy(rng.integers(-9, 9, 100).astype(np.int32)).to(dev)
+    feats = from_u32(_u32(rng, (50, 3)), dev)
+    for n in (4095, 4096, 4097, 20000):
+        got = is_kernel.decode_stream(imem, n, 50, 7, wmem)
+        want = is_kernel.decode_stream_plain(imem, n, 50, 7, wmem)
+        assert got.n_mid == want.n_mid
+        assert all(torch.equal(a, b) for a, b in zip(got[:-1], want[:-1])), n
+        sums = is_kernel.interp_stream(imem, n, feats, wmem, m_cap=7)
+        torch.testing.assert_close(
+            sums, is_kernel.interpret_stream_plain(imem, n, feats, wmem, 7), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("w", [1, 256])
+def test_interp_stream_pointer_wraps_as_int32(dev, w):
+    """524,417 EXTENDs in one clause carry the pointer past 2**31: the
+    decode's unsigned sum goes through the block scan and a look-back over
+    ~500 tiles, wraps negative, and the next include reads feature row 0
+    where an unbounded pointer would clip to the last row."""
+    from repro_torch.kernels.interp_stream import kernel as is_kernel
+
+    extend = 0x0FFF
+    n_ext = (1 << 31) // extend + 2
+    head = 0x8000 | 0x4000 | 0x2000 | 3  # E, CC, P: opens class 0, offset 3
+    imem = torch.from_numpy(np.concatenate([
+        [head], np.full(n_ext, extend | 0xC000), [0x8000 | 0x4000 | 5],
+        [0x4000 | 0x2000 | 1]]).astype(np.int32)).to(dev)
+    f_cap, m_cap, n = 6, 2, imem.numel()
+    got = is_kernel.decode_stream(imem, n, f_cap, m_cap, None)
+    want = is_kernel.decode_stream_plain(imem, n, f_cap, m_cap, None)
+    assert got.n_mid == want.n_mid
+    for name, a, b in zip(got._fields[:-1], got[:-1], want[:-1]):
+        assert torch.equal(a, b), name
+    assert got.include_row.tolist() == [1, 0, 0]
+    rng = np.random.default_rng(w)
+    feats = _u32(rng, (f_cap, w))
+    feats[0], feats[1], feats[f_cap - 1] = 0xF0F0F0F0, 0xFF00FF00, 0x0F0F0F0F
+    feats = from_u32(feats, dev)
+    sums = is_kernel.interp_stream(imem, n, feats, m_cap=m_cap)
+    torch.testing.assert_close(
+        sums, is_kernel.interpret_stream_plain(imem, n, feats, None, m_cap), rtol=0, atol=0)
+    assert sums[0].any()
+
+
 @pytest.mark.parametrize("f_cap,m_cap", [(4096, 64), (784, 400), (20000, 1190)])
 def test_interp_stream_kernel_on_large_memories(dev, f_cap, m_cap):
-    """Feature and class-sum memories that need more than 48 KB of shared
-    memory (the opt-in path), up to the block's limit."""
+    """Feature and class-sum memories far past the parent kernel's shared
+    memory, which held both (F_cap + 32 m_cap words); the kernel now takes
+    m_cap <= 65535 and F_cap * W < 2**30."""
     from repro_torch.kernels.interp_stream import kernel as is_kernel
 
     rng = np.random.default_rng(f_cap)
@@ -450,7 +520,10 @@ def test_interp_stream_wrapper_refuses_what_the_kernel_does_not_take(dev):
     imem = torch.zeros(64, dtype=torch.int32, device=dev)
     feats = torch.zeros((100, 4), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="interp_stream kernel takes"):
-        is_kernel.interp_stream(imem, 10, feats, m_cap=2000)
+        is_kernel.interp_stream(imem, 10, feats, m_cap=65536)
+    huge = torch.zeros((1, 1), dtype=torch.int32, device=dev).expand(1 << 15, 1 << 15)
+    with pytest.raises(ValueError, match="interp_stream kernel takes"):
+        is_kernel.interp_stream(imem, 10, huge, m_cap=2)  # F_cap * W = 2**30 words
     with pytest.raises(ValueError, match="contiguous"):
         is_kernel.interp_stream(imem, 10, feats.T.contiguous().T, m_cap=2)
     with pytest.raises(ValueError, match="is on"):
