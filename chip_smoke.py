@@ -76,6 +76,20 @@ features, ~17k includes, 8192 datapoints per flush) it
      it under queued traffic, serving the oracle of the published pruned
      weights; the engines' flush, ``interp_stream`` (events, profiler per
      launch, bound) and the policy are timed;
+  3e. the fleet (``fleet_phase``): four nodes on the card (``TMServer``
+     on the ``interp``, ``plan`` and ``popcount`` engines and the
+     ``Accelerator`` façade), their scheduler loops running, through the
+     scenarios of benchmarks/tm_fleet.py: pools of 1, 2 and 4 nodes route
+     48 requests of 37..8192 rows (every reply equal to the oracle, rows/s
+     on the host clock); ``RolloutManager`` ships model b canary -> wave
+     -> fleet under router traffic (nothing dropped, every reply a's or
+     b's oracle, every stage bit-exact; ``install_s``/``verify_s`` and the
+     device's idle share over the rollout); b with its class rows rotated
+     aborts at the canary and the canary rolls back; four ``ChaosNode``s
+     lose no critical request while one is killed and revived (quarantine
+     within 3 consecutive failures, recovery by a half-open probe); the
+     launches of ``tm_popcount`` and ``interp_stream`` are zeroed before
+     the phase and read after it;
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
@@ -640,10 +654,11 @@ def messy_actions(acts):
     return acts
 
 
-def stream_phase(dev, cfg, served, models, X, pred_b):
+def stream_phase(dev, cfg, served, models, X, pred_b, oracles):
     """Phase 3d: the paper's stream interpreter and pruning on the card, at
     the width of models a and b (``models``: name -> (actions, weights,
-    model)).  Returns the ``interp_stream`` row of the kernels line."""
+    model); ``oracles``: name -> their dense sums on ``X``).  Returns the
+    ``interp_stream`` row of the kernels line."""
     import dataclasses
 
     import numpy as np
@@ -663,7 +678,7 @@ def stream_phase(dev, cfg, served, models, X, pred_b):
     M, C, L = cfg.n_classes, cfg.n_clauses, cfg.n_literals
     I_CAP = served.instruction_capacity
     acts_a, _, model_a = models["a"]
-    acts_b, w_b, model_b = models["b"]
+    model_b = models["b"][2]
     Xt = torch.from_numpy(X).to(dev)
 
     def imem_of(model):
@@ -714,8 +729,7 @@ def stream_phase(dev, cfg, served, models, X, pred_b):
         print(f"parity interp_stream decode {name}: tables equal "
               f"({got_t.include_row.numel()} includes, {got_t.clause_row.numel()} "
               f"clauses at {n} instructions; all instructions too)")
-    oracle_a = dense_sums(cfg, acts_a, None, X, dev)
-    oracle_b = dense_sums(cfg, acts_b, w_b, X, dev)
+    oracle_a, oracle_b = oracles["a"], oracles["b"]
     got = isk.interp_stream(*stream_cases["model a W=256"][:2], feats, m_cap=M)
     if not np.array_equal(got.T.cpu().numpy(), oracle_a):
         fail("interp_stream's sums of model a differ from the dense oracle")
@@ -772,7 +786,6 @@ def stream_phase(dev, cfg, served, models, X, pred_b):
     engines = {name: Accelerator(served, engine=name, device=dev)
                for name in ("interp", "plan")}
     blobs = {k: pop.compile(models[k][2]).to_bytes() for k in ("a", "b")}
-    oracles = {"a": oracle_a, "b": oracle_b}
     for step, k in enumerate("aba"):
         pop.load("mnist", blobs[k], provenance=f"swap {step}")
         want = pop.class_sums("mnist", X)
@@ -958,6 +971,314 @@ def stream_phase(dev, cfg, served, models, X, pred_b):
           f"{time.perf_counter() - t0:.6f} s (host clock)")
     return ("interp_stream", "src/repro/core/interp.py:82", counts["interp_stream"],
             stream_err, (k_ms, p_ms, bound_ms, bound_by, None))
+
+
+def fleet_phase(dev, cfg, served, models, X, oracles):
+    """Phase 3e: the fleet (``repro_torch.fleet``) at the width of models a
+    and b (``models``: name -> (actions, weights, model); ``oracles``: name
+    -> the dense int32 [8192, 10] sums).  Four nodes on the card: ``TMServer``
+    on the ``interp``, ``plan`` and ``popcount`` engines and the
+    ``Accelerator`` façade; the four scenarios of benchmarks/tm_fleet.py,
+    the launches of ``tm_popcount`` and ``interp_stream`` counted."""
+    import threading
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from repro_torch.accel import Accelerator, TMProgram
+    from repro_torch.core import encode
+    from repro_torch.fleet import (
+        ChaosNode,
+        FleetHealth,
+        FleetPool,
+        RetryPolicy,
+        RolloutAborted,
+        RolloutManager,
+        Router,
+    )
+    from repro_torch.kernels.interp_stream import kernel as isk
+    from repro_torch.kernels.tm_popcount import kernel as tmk
+    from repro_torch.serve_tm import TMServer
+
+    t_phase = time.perf_counter()
+    n_rows = X.shape[0]
+    arts = {k: TMProgram(capacity=served, model=models[k][2]) for k in "ab"}
+
+    def replied(h, timeout=120.0):
+        """The predictions of a routed request; a request that failed or
+        never completed fails the phase."""
+        try:
+            return h.wait(timeout=timeout)
+        except Exception as e:
+            fail(f"phase 3e: a request routed to {getattr(h, 'routed_to', '?')} "
+                 f"failed: {type(e).__name__}: {e}")
+
+    def exact(k, h, preds, off):
+        want = oracles[k][off:off + h.n_rows]
+        return (np.array_equal(preds, want.argmax(1))
+                and np.array_equal(np.asarray(h.class_sums), want))
+
+    torch.cuda.synchronize()
+    for mod in (tmk, isk):
+        mod.launches = 0
+    nodes = {f"n{i}": TMServer(served, engine=e, device=dev)
+             for i, e in enumerate(("interp", "plan", "popcount"))}
+    nodes["n3"] = Accelerator(served, device=dev)
+    engines = [n.executor.name for n in list(nodes.values())[:3]]
+    engines.append(nodes["n3"].engine.name)
+    if engines != ["interp", "plan", "popcount", "popcount"]:
+        fail(f"phase 3e nodes run {engines}")
+    for node in nodes.values():
+        node.register("mnist", arts["a"])
+    # bounded retries outlast a full lane (admission control) while the
+    # loops drain it
+    retry = RetryPolicy(max_attempts=12, backoff_max_s=0.05)
+
+    # -- 1. pool sweep: 48 requests of 37..8192 rows over 1, 2, 4 nodes ----
+    rng = np.random.default_rng(11)
+    sizes = rng.integers(37, n_rows + 1, 48)
+    offs = [int(rng.integers(0, n_rows - r + 1)) for r in sizes]
+    rates = {}
+    for n in (1, 2, 4):
+        pool = FleetPool({name: nodes[name] for name in list(nodes)[:n]})
+        router = Router(pool, retry=retry)
+        pool.start_all()
+        t0 = time.perf_counter()
+        handles = [(router.submit("mnist", X[o:o + r]), o) for o, r in zip(offs, sizes)]
+        replies = [(h, replied(h), o) for h, o in handles]
+        torch.cuda.synchronize()
+        routed_s = time.perf_counter() - t0
+        rates[n] = len(handles) / routed_s
+        pool.stop_all()
+        if not all(exact("a", h, p, o) for h, p, o in replies):
+            fail(f"phase 3e pool of {n}: a reply differs from model a's oracle")
+        health = router.health.summary()
+        print(f"fleet 3e pool {n} {engines[:n]}: {int(sizes.sum())} rows in 48 "
+              f"requests, {routed_s:.6f} s, {sizes.sum() / routed_s:.1f} rows/s, "
+              f"{rates[n]:.1f} requests/s "
+              f"(host clock, loops running); routed "
+              f"{dict(Counter(h.routed_to for h, _ in handles))}; overloads "
+              f"{sum(s['overloads'] for s in health.values())}, retries "
+              f"{sum(s['retries'] for s in health.values())}; every reply "
+              f"equal to the oracle")
+
+    # seconds between requests for an offered load of a quarter of the
+    # requests four nodes routed (a flush costs about the same host time
+    # whatever its rows): a load above the service rate grows every queue
+    # without bound, and a hot-swap drains its node's queue to empty
+    # before it installs
+    pace = 1 / (0.25 * rates[4])
+
+    # -- 2. rollout a -> b under router traffic -----------------------------
+    pool = FleetPool(nodes)
+    router = Router(pool, retry=retry)
+    holdout = X[:512]
+    y_b = oracles["b"][:512].argmax(1)
+    block = 1024
+    traffic, traffic_errors, stop = [], [], threading.Event()
+
+    def keep_traffic():
+        i = 0
+        while not stop.is_set():
+            off = (i % (n_rows // block)) * block
+            try:
+                traffic.append((router.submit("mnist", X[off:off + block]), off))
+            except Exception as e:  # read and failed on below
+                traffic_errors.append(e)
+            i += 1
+            time.sleep(pace)
+
+    pool.start_all()
+    thread = threading.Thread(target=keep_traffic, daemon=True)
+    thread.start()
+    time.sleep(0.05)  # traffic in flight before the rollout starts
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        try:
+            report = RolloutManager(pool, gate_timeout_s=60.0).rollout(
+                "mnist", arts["b"], holdout_x=holdout, holdout_y=y_b,
+                min_accuracy=0.99)
+        except RolloutAborted as e:
+            fail(f"phase 3e: the rollout of model b aborted: {e}")
+        torch.cuda.synchronize()
+        rollout_s = time.perf_counter() - t0
+    time.sleep(0.05)  # traffic after the rollout, on model b
+    stop.set()
+    thread.join(timeout=30)
+    if thread.is_alive() or traffic_errors:
+        fail(f"phase 3e: the traffic thread failed: {traffic_errors[:3]}")
+    on = Counter()
+    for h, off in traffic:
+        preds = replied(h)
+        k = next((k for k in "ab" if exact(k, h, preds, off)), None)
+        if k is None:
+            fail("phase 3e: a reply during the rollout is neither a's nor b's oracle")
+        on[k] += 1
+    if not (report.completed and [s.stage for s in report.stages]
+            == ["canary", "wave", "fleet"]
+            and all(s.bit_exact and s.checksum_ok and s.passed for s in report.stages)):
+        fail(f"phase 3e: the rollout's stages failed their gates: {report.stages}")
+    if any(node.installed_checksum("mnist") != arts["b"].checksum
+           for node in nodes.values()):
+        fail("phase 3e: a node is not on model b after the rollout")
+    ops = device_ops(prof)
+    busy_us = sum(op[0] for op in ops)
+    print(f"fleet 3e rollout a -> b: {len(traffic)} requests of {block} rows under "
+          f"traffic, 0 dropped, {on['a']} on a and {on['b']} on b, each equal to "
+          f"its oracle; rollout {rollout_s:.6f} s")
+    for s in report.stages:
+        print(f"fleet 3e rollout stage {s.stage} {list(s.nodes)}: install_s "
+              f"{s.install_s:.6f}, verify_s {s.verify_s:.6f}, accuracy "
+              f"{s.accuracy}, bit_exact {s.bit_exact}, checksum_ok {s.checksum_ok}")
+    print(f"profile 3e rollout: wall {rollout_s * 1e6:.1f} us, device busy "
+          f"{busy_us:.1f} us (idle share {1 - busy_us / (rollout_s * 1e6):.3f})")
+    for us, key, count in ops[:6]:
+        print(f"profile 3e rollout: {us:.1f} us  x{count}  {key[:80]}")
+
+    # -- 3. canary failure: b with its class rows rotated -------------------
+    acts_b, w_b, _ = models["b"]
+    rotated = TMProgram(capacity=served, model=encode(
+        cfg, np.roll(acts_b, 1, axis=0), np.roll(w_b, 1, axis=0)))
+    try:
+        RolloutManager(pool, gate_timeout_s=60.0).rollout(
+            "mnist", rotated, holdout_x=holdout, holdout_y=y_b)
+        fail("phase 3e: the rotated model passed the canary's gate")
+    except RolloutAborted as e:
+        aborted = e
+    pool.stop_all()
+    if aborted.stage != "canary" or aborted.report.rolled_back != ("n0",):
+        fail(f"phase 3e: the canary failure aborted wrong: {aborted}")
+    if any(node.installed_checksum("mnist") != arts["b"].checksum
+           for node in nodes.values()):
+        fail("phase 3e: a node is not back on model b after the canary failure")
+    if not nodes["n0"].registry.get("mnist").provenance.startswith("rollback:"):
+        fail("phase 3e: the canary has no rollback provenance")
+    print(f"fleet 3e canary failure: aborted at {aborted.stage} "
+          f"(canary accuracy {aborted.report.stages[-1].accuracy}, baseline "
+          f"{aborted.report.baseline_accuracy}), rolled back "
+          f"{list(aborted.report.rolled_back)}, every node on b's checksum")
+
+    # -- 4. chaos: kill a node mid-traffic, revive it -----------------------
+    victim = "n1"
+    chaos = {name: ChaosNode(
+        node, name=name, seed=100 + i, error_rate=0.03, latency_rate=0.04,
+        latency_s=0.0005, overload_rate=0.02,
+        hang_rate=0.05 if name == victim else 0.0,  # kill() resolves its hangs
+    ) for i, (name, node) in enumerate(nodes.items())}
+    cpool = FleetPool(chaos)
+
+    class Witness(FleetHealth):
+        """Notes the victim's consecutive failures at each quarantine (two
+        threads record outcomes, so a later read could count more)."""
+
+        def quarantine(self, name, reason=""):
+            if name == victim:
+                quarantines.append((time.perf_counter(),
+                                    self.summary()[name]["consecutive_failures"]))
+            super().quarantine(name, reason)
+
+    quarantines, t_kill, down_at_kill = [], None, None
+    health = Witness(pool=cpool, consecutive_failures=3, probe_after_s=0.05,
+                     heartbeat_timeout_s=600.0)
+    router = Router(cpool, health=health, retry=RetryPolicy(
+        max_attempts=6, backoff_base_s=0.002, backoff_max_s=0.02))
+    rows = served.batch_capacity // 4
+    blocks = [int(o) for o in rng.integers(0, n_rows - rows + 1, 8)]
+    n_critical, background = 96, []
+    kill_at, revive_at = n_critical // 3, 2 * n_critical // 3
+    counts = Counter()
+
+    def load():
+        i = 0
+        while not stop_load.is_set():
+            off = blocks[i % len(blocks)]
+            try:
+                background.append(router.submit("mnist", X[off:off + rows]))
+            except Exception:
+                pass  # best-effort load: overload or exhausted retries
+            i += 1
+            time.sleep(pace)
+
+    def critical(i):
+        off = blocks[i % len(blocks)]
+        for attempt in range(12):
+            counts["resubmits"] += attempt > 0
+            try:
+                h = router.submit("mnist", X[off:off + rows], priority="critical",
+                                  timeout_ms=2000.0)
+            except Exception:
+                counts["structured_errors"] += 1
+                time.sleep(0.002)
+                continue
+            try:
+                preds = h.wait(timeout=1.0)
+            except TimeoutError:
+                continue  # a hung handle: the retry moves on
+            except Exception:
+                counts["structured_errors"] += 1
+                continue
+            return "correct" if exact("b", h, preds, off) else "incorrect"
+        return "lost"
+
+    stop_load = threading.Event()
+    cpool.start_all()
+    thread = threading.Thread(target=load, daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    for i in range(n_critical):
+        if i == kill_at:
+            down_at_kill = health.state(victim)
+            t_kill = time.perf_counter()
+            chaos[victim].kill()
+        if i == revive_at:
+            chaos[victim].revive()
+            chaos[victim].rates["hang"] = 0.0
+            time.sleep(health.probe_after_s + 0.02)  # the cooldown elapses
+        counts[critical(i)] += 1
+    stop_load.set()
+    thread.join(timeout=30)
+    unresolved = 0
+    for h in background:
+        try:
+            h.wait(timeout=60.0)
+        except TimeoutError:
+            unresolved += 1
+        except Exception:
+            pass  # a structured failure (NodeDown, EngineFault) is terminal
+    cpool.stop_all()
+    chaos_s = time.perf_counter() - t0
+    vict = health.summary()[victim]
+    if thread.is_alive() or counts["lost"] or counts["incorrect"] or unresolved:
+        fail(f"phase 3e chaos: {dict(counts)}, {unresolved} unresolved handles")
+    after_kill = [n for t, n in quarantines if t >= t_kill]
+    if down_at_kill != "quarantined" and not (after_kill and after_kill[0] <= 3):
+        fail(f"phase 3e chaos: the victim was not quarantined within 3 "
+             f"consecutive failures of its kill: {after_kill}, {vict}")
+    if vict["probes"] < 1 or vict["state"] in ("quarantined", "half_open"):
+        fail(f"phase 3e chaos: the victim did not recover through a probe: {vict}")
+    faults = Counter(f for c in chaos.values() for _, _, f in c.fault_log)
+    print(f"fleet 3e chaos: {n_critical} critical requests of {rows} rows, "
+          f"{counts['correct']} correct, 0 lost, 0 incorrect, "
+          f"{counts['resubmits']} resubmits, {counts['structured_errors']} "
+          f"structured errors; {len(background)} background requests, 0 "
+          f"unresolved; victim {victim} ({down_at_kill} when killed at request "
+          f"{kill_at}) quarantined after {after_kill[:1]} consecutive failures, "
+          f"{len(quarantines)} quarantine(s) in all, revived at {revive_at}, "
+          f"{vict['probes']} probe(s), ends {vict['state']}; faults "
+          f"{dict(faults)}; {chaos_s:.6f} s")
+
+    torch.cuda.synchronize()
+    launched = {"tm_popcount": tmk.launches, "interp_stream": isk.launches}
+    caches = {name: node.compile_cache_size() for name, node in nodes.items()}
+    if any(n != 1 for n in caches.values()):
+        fail(f"phase 3e: compile_cache_size() after the swaps: {caches}")
+    for name, n in launched.items():
+        if n == 0:
+            fail(f"phase 3e never launched {name}")
+    print(f"fleet 3e: compile_cache_size 1 on every node; launches {launched}; "
+          f"phase {time.perf_counter() - t_phase:.3f} s")
 
 
 def main() -> int:
@@ -1438,11 +1759,13 @@ def main() -> int:
     train_row = fig8_phase(dev, acts_a, X, pred_b.astype(np.int32))
 
     # -- 3d. the paper's stream interpreter and pruning -------------------
-    stream_row = stream_phase(
-        dev, cfg, served,
-        {"a": (acts_a, None, model_a), "b": (acts_b, w_b, model_b)},
-        X, pred_b.astype(np.int32),
-    )
+    models = {"a": (acts_a, None, model_a), "b": (acts_b, w_b, model_b)}
+    oracles = {k: dense_sums(cfg, acts, w, X, dev) for k, (acts, w, _) in models.items()}
+    stream_row = stream_phase(dev, cfg, served, models, X, pred_b.astype(np.int32),
+                              oracles)
+
+    # -- 3e. the fleet: pool sweep, rollout under traffic, canary, chaos ---
+    fleet_phase(dev, cfg, served, models, X, oracles)
 
     # -- 4. timings --------------------------------------------------------
     def kernel_bound(ops, packed):

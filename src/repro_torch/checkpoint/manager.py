@@ -1,0 +1,196 @@
+"""Atomic checkpoints of trees of tensors, the port of
+``repro.checkpoint.manager``.
+
+Layout (the reference's, so either package restores what the other saved):
+          <dir>/step_<N>.tmp/ -> (atomic rename) -> <dir>/step_<N>/
+            manifest.json     leaf names in flatten order + shapes/dtypes
+            leaf_<i>.npy      one file per leaf
+
+Fault-tolerance properties:
+  * atomic publish (tmp dir + rename) — a crash mid-save never corrupts the
+    latest checkpoint;
+  * ``keep_last`` garbage collection.
+
+A tree is flattened by JAX's rules, not ``torch.utils._pytree``'s, because
+``restore`` holds the manifest's leaf names in order: dict keys sorted (an
+``OrderedDict`` keeps its own order), lists and tuples by index,
+namedtuple fields as ``.<field>``, and ``None`` an empty subtree; every
+other object is a leaf.
+
+``restore(step, like)`` places each leaf on the device of ``like``'s
+matching leaf, the port's counterpart of the reference's ``shardings=``
+(a mesh waits for the multi-device slice), in that leaf's dtype.  The
+reference keeps the saved dtype; the port casts, so that a reference PRNG
+key saved as uint32 words restores as the port's int64 key words
+(``convert.key_from_numpy``).  A value that does not survive the cast
+raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import shutil
+import threading
+from collections import OrderedDict
+from pathlib import Path
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _entries(node) -> Optional[List[Tuple[Any, str]]]:
+    """[(key, name)] of a container node in JAX's flatten order, or
+    None for a leaf."""
+    if node is None:
+        return []
+    if isinstance(node, dict):
+        keys = list(node) if isinstance(node, OrderedDict) else sorted(node)
+        return [(k, str(k)) for k in keys]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return [(i, f".{f}") for i, f in enumerate(node._fields)]
+    if isinstance(node, (list, tuple)):
+        return [(i, str(i)) for i in range(len(node))]
+    return None
+
+
+def _flatten_with_names(tree: Any, path: Tuple[str, ...] = ()):
+    entries = _entries(tree)
+    if entries is None:
+        return ["/".join(path)], [tree]
+    names, leaves = [], []
+    for key, name in entries:
+        n, l = _flatten_with_names(tree[key], path + (name,))
+        names += n
+        leaves += l
+    return names, leaves
+
+
+def _map(fn, tree: Any) -> Any:
+    """``tree`` with each leaf replaced by ``fn(leaf)``, called in
+    flatten order; a dict comes back in its flatten order, as JAX
+    rebuilds it."""
+    entries = _entries(tree)
+    if entries is None:
+        return fn(tree)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        out = copy.copy(tree)  # keeps the type (and a default_factory)
+        out.clear()
+        for key, _ in entries:
+            out[key] = _map(fn, tree[key])
+        return out
+    values = [_map(fn, tree[key]) for key, _ in entries]
+    return type(tree)(*values) if hasattr(tree, "_fields") else type(tree)(values)
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _restore_leaf(arr: np.ndarray, like, name: str):
+    if not isinstance(like, torch.Tensor):
+        return torch.from_numpy(arr)
+    want = torch.empty(0, dtype=like.dtype).numpy().dtype
+    if arr.dtype != want:
+        cast = arr.astype(want)
+        floats = arr.dtype.kind in "fc" and want.kind in "fc"
+        if not np.array_equal(cast, arr, equal_nan=floats):
+            raise ValueError(
+                f"leaf {name!r}: the saved {arr.dtype} values do not survive "
+                f"the cast to {like.dtype}"
+            )
+        arr = cast
+    return torch.from_numpy(arr).to(like.device)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str | Path, keep_last: int = 3):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep_last = keep_last
+
+    # -- save ----------------------------------------------------------------
+
+    def save(self, step: int, tree: Any) -> Path:
+        names, leaves = _flatten_with_names(tree)
+        tmp = self.dir / f"step_{step}.tmp"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        manifest = {"step": step, "leaves": []}
+        for i, (name, leaf) in enumerate(zip(names, leaves)):
+            arr = _to_numpy(leaf)
+            np.save(tmp / f"leaf_{i}.npy", arr)
+            manifest["leaves"].append(
+                {"name": name, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+            )
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        final = self.dir / f"step_{step}"
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)  # atomic publish
+        self._gc()
+        return final
+
+    def save_async(self, step: int, tree: Any):
+        """Non-blocking save: copies every tensor to the host first (a
+        copy even of a host tensor, so an in-place update after this call
+        does not reach the checkpoint), then writes in a background
+        thread (the atomic rename publishes only when complete).  Returns
+        the Thread (join() to flush)."""
+        host_tree = _map(
+            lambda x: x.detach().to("cpu", copy=True)
+            if isinstance(x, torch.Tensor) else np.asarray(x),
+            tree,
+        )
+        t = threading.Thread(target=self.save, args=(step, host_tree), daemon=True)
+        t.start()
+        return t
+
+    # -- restore ---------------------------------------------------------------
+
+    def steps(self) -> list[int]:
+        out = []
+        for p in self.dir.glob("step_*"):
+            if p.name.endswith(".tmp"):
+                continue
+            try:
+                out.append(int(p.name.split("_")[1]))
+            except ValueError:
+                pass
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def restore(self, step: int, like: Any) -> Any:
+        """Restore into the structure of ``like``: each leaf a tensor on
+        the device and in the dtype of ``like``'s matching leaf (a leaf of
+        ``like`` that is no tensor gets a host tensor of the saved
+        dtype)."""
+        src = self.dir / f"step_{step}"
+        manifest = json.loads((src / "manifest.json").read_text())
+        names, likes = _flatten_with_names(like)
+        if len(names) != len(manifest["leaves"]):
+            raise AssertionError("tree structure mismatch")
+        out = []
+        for i, (name, rec) in enumerate(zip(names, manifest["leaves"])):
+            if name != rec["name"]:
+                raise AssertionError(
+                    f"leaf order mismatch: {name} != {rec['name']}"
+                )
+            arr = np.load(src / f"leaf_{i}.npy")
+            out.append(_restore_leaf(arr, likes[i], name))
+        leaves = iter(out)
+        return _map(lambda _: next(leaves), like)
+
+    def _gc(self):
+        steps = self.steps()
+        for s in steps[: -self.keep_last]:
+            shutil.rmtree(self.dir / f"step_{s}", ignore_errors=True)

@@ -7,16 +7,22 @@ a hash of their source and flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing is built at import: the first
 launch builds, or ``build()`` builds every source at once (one ``nvcc``
 process per source, all started together).
+
+The serving nodes of a fleet launch kernels from one scheduler thread
+each, so ``build`` and ``load`` run under one lock (two threads that
+first launch one kernel at once build it once), and every kernel module's
+``launches`` counter is added to under another (``count_launches``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -28,6 +34,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_build_lock = threading.RLock()  # load holds it across its build
+_libs: Dict[str, ctypes.CDLL] = {}
+_launch_lock = threading.Lock()
 
 
 def kernel_names() -> list:
@@ -62,49 +71,66 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     empty when the library was already built).  Raises with the
     compiler's output when a build fails."""
     names = kernel_names() if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    logs = {name: "" for name in names}
-    try:
-        for name in names:
-            out = library_path(name)
-            if out.exists():
-                continue
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
-            ), tmp, out)
-        for name, (proc, tmp, out) in procs.items():
-            logs[name] = proc.communicate()[0]
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on csrc/{name}.cu (exit "
-                    f"{proc.returncode}):\n{logs[name]}"
+    with _build_lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        logs = {name: "" for name in names}
+        try:
+            for name in names:
+                out = library_path(name)
+                if out.exists():
+                    continue
+                tmp = out.with_name(
+                    f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp"
                 )
-            os.replace(tmp, out)
-    finally:
-        for proc, tmp, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if tmp.exists():
-                tmp.unlink()
-    return logs
+                cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
+                ), tmp, out)
+            for name, (proc, tmp, out) in procs.items():
+                logs[name] = proc.communicate()[0]
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on csrc/{name}.cu (exit "
+                        f"{proc.returncode}):\n{logs[name]}"
+                    )
+                os.replace(tmp, out)
+        finally:
+            for proc, tmp, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                if tmp.exists():
+                    tmp.unlink()
+        return logs
 
 
-@functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` (built on first use).
-    Every source exports ``<name>_error_string``, CUDA's text for an
-    error code, which ``raise_on`` reads."""
-    build([name])
-    lib = ctypes.CDLL(str(library_path(name)))
-    text = getattr(lib, f"{name}_error_string")
-    text.argtypes = [ctypes.c_int]
-    text.restype = ctypes.c_char_p
-    return lib
+    """The built library of ``csrc/<name>.cu`` (built on first use, once
+    whatever the number of threads asking).  Every source exports
+    ``<name>_error_string``, CUDA's text for an error code, which
+    ``raise_on`` reads."""
+    with _build_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            text = getattr(lib, f"{name}_error_string")
+            text.argtypes = [ctypes.c_int]
+            text.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def count_launches(module: str, n: int) -> None:
+    """Add ``n`` to the ``launches`` counter of the kernel module named
+    ``module`` (its ``__name__``).  ``launches += n`` is a
+    read-modify-write that loses counts when several threads launch at
+    once; here it runs under one lock."""
+    mod = sys.modules[module]
+    with _launch_lock:
+        mod.launches += n
 
 
 def raise_on(name: str, err: int, what: str) -> None:

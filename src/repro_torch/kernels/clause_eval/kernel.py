@@ -107,7 +107,6 @@ def _lib() -> ctypes.CDLL:
 
 
 def _clause_eval_cuda(actions, packed_lits):
-    global launches
     if not (actions.is_contiguous() and packed_lits.is_contiguous()):
         raise ValueError("clause_eval operands must be contiguous")
     nc, l2 = actions.shape
@@ -119,5 +118,5 @@ def _clause_eval_cuda(actions, packed_lits):
         _build.stream(dev),
     )
     _build.raise_on("clause_eval", err, "clause_eval")
-    launches += 1
+    _build.count_launches(__name__, 1)
     return out

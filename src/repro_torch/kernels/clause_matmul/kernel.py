@@ -106,7 +106,6 @@ def _k_step() -> int:
 
 
 def _clause_matmul_cuda(actions, lits):
-    global launches
     if not (actions.is_contiguous() and lits.is_contiguous()):
         raise ValueError("clause_matmul operands must be contiguous")
     nc, l2 = actions.shape
@@ -130,5 +129,5 @@ def _clause_matmul_cuda(actions, lits):
         a8 + nc * l2p, a8 + (nc + b) * l2p, out.data_ptr(), _build.stream(dev),
     )
     _build.raise_on("clause_matmul", err, "clause_matmul")
-    launches += 2
+    _build.count_launches(__name__, 2)
     return out

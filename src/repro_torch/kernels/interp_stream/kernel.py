@@ -353,7 +353,6 @@ def _scratch(n_active, m_cap, dev):
 
 
 def _decode_cuda(imem, n_inst, f_cap, m_cap, wmem):
-    global launches
     if m_cap > MAX_M_CAP:
         raise ValueError(f"the interp_stream kernel takes m_cap <= {MAX_M_CAP}, got {m_cap}")
     w_ptr, n_weights = _operands(imem, wmem)
@@ -364,12 +363,11 @@ def _decode_cuda(imem, n_inst, f_cap, m_cap, wmem):
         scratch.data_ptr(), _build.stream(imem.device),
     )
     _build.raise_on("interp_stream", err, "interp_stream decode")
-    launches += 1
+    _build.count_launches(__name__, 1)
     return n_active, scratch
 
 
 def _interp_stream_cuda(imem, n_inst, packed_features, wmem, m_cap):
-    global launches
     f_cap, w = packed_features.shape
     if m_cap > MAX_M_CAP or f_cap * w >= MAX_FEATURE_WORDS:
         raise ValueError(
@@ -390,5 +388,5 @@ def _interp_stream_cuda(imem, n_inst, packed_features, wmem, m_cap):
         _build.stream(dev),
     )
     _build.raise_on("interp_stream", err, "interp_stream")
-    launches += 2
+    _build.count_launches(__name__, 2)
     return out

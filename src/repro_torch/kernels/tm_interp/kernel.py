@@ -144,7 +144,6 @@ def _lib() -> ctypes.CDLL:
 
 
 def _tm_interp_cuda(lit_idx, pol, cls, packed_lits, m_cap, clause_end):
-    global launches
     dev = packed_lits.device
     l2, w = packed_lits.shape
     if m_cap > MAX_M_CAP or l2 * w >= MAX_LITERAL_WORDS:
@@ -165,5 +164,5 @@ def _tm_interp_cuda(lit_idx, pol, cls, packed_lits, m_cap, clause_end):
         _build.stream(dev),
     )
     _build.raise_on("tm_interp", err, "tm_interp")
-    launches += 1
+    _build.count_launches(__name__, 1)
     return out

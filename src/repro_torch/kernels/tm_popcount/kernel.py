@@ -250,7 +250,6 @@ def _tm_popcount_cuda(
     lit_idx, last_flag, mask_pos, mask_neg, packed_lits, clause_end,
     n_clauses, clause_masks,
 ):
-    global launches
     dev = packed_lits.device
     if clause_end is None:
         clause_end = torch.nonzero(last_flag == 1).flatten().to(torch.int32)
@@ -294,5 +293,5 @@ def _tm_popcount_cuda(
         _build.stream(dev),
     )
     _build.raise_on("tm_popcount", err, "tm_popcount")
-    launches += 2 if n_clauses else 1
+    _build.count_launches(__name__, 2 if n_clauses else 1)
     return out

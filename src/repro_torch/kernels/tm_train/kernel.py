@@ -209,7 +209,6 @@ def _lib() -> ctypes.CDLL:
 
 
 def _tm_train_cuda(cfg, packed, clause_words, packed_lits, yb, key):
-    global launches
     M, C, L = cfg.n_classes, cfg.n_clauses, cfg.n_literals
     if not all(t.is_contiguous() for t in (packed, clause_words, packed_lits)):
         raise ValueError("tm_train operands must be contiguous")
@@ -237,7 +236,7 @@ def _tm_train_cuda(cfg, packed, clause_words, packed_lits, yb, key):
         out.data_ptr(), _build.stream(dev),
     )
     _build.raise_on("tm_train", err, "tm_train")
-    launches += 2
+    _build.count_launches(__name__, 2)
     return out
 
 

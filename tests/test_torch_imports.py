@@ -33,7 +33,10 @@ KERNELS = ["clause_eval", "clause_matmul", "interp_stream", "tm_interp", "tm_pop
 MODULES = ["repro_torch.core.runtime", "repro_torch.core.interp",
            "repro_torch.core.booleanize", "repro_torch.data.pipeline",
            "repro_torch.prune.rank", "repro_torch.prune.passes",
-           "repro_torch.serve_tm.executors"]
+           "repro_torch.serve_tm.executors", "repro_torch.fleet.pool",
+           "repro_torch.fleet.router", "repro_torch.fleet.health",
+           "repro_torch.fleet.chaos", "repro_torch.fleet.rollout",
+           "repro_torch.runtime_ft.supervisor", "repro_torch.checkpoint.manager"]
 
 _PROBE = """
 import importlib, pkgutil, sys
