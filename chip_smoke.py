@@ -77,8 +77,9 @@ features, ~17k includes, 8192 datapoints per flush) it
      weights; the engines' flush, ``interp_stream`` (events, profiler per
      launch, bound) and the policy are timed;
   3e. the fleet (``fleet_phase``): four nodes on the card (``TMServer``
-     on the ``interp``, ``plan`` and ``popcount`` engines and the
-     ``Accelerator`` façade), their scheduler loops running, through the
+     on the ``interp``, ``plan``, ``popcount`` and ``sharded`` engines,
+     the bench's cycle, the sharded node on a (1, 2) mesh of the card),
+     their scheduler loops running, through the
      scenarios of benchmarks/tm_fleet.py: pools of 1, 2 and 4 nodes route
      48 requests of 37..8192 rows (every reply equal to the oracle, rows/s
      on the host clock); ``RolloutManager`` ships model b canary -> wave
@@ -88,12 +89,29 @@ features, ~17k includes, 8192 datapoints per flush) it
      aborts at the canary and the canary rolls back; four ``ChaosNode``s
      lose no critical request while one is killed and revived (quarantine
      within 3 consecutive failures, recovery by a half-open probe); the
-     launches of ``tm_popcount`` and ``interp_stream`` are zeroed before
-     the phase and read after it;
+     launches of ``tm_popcount``, ``interp_stream`` and ``clause_table``
+     are zeroed before the phase and read after it;
+  3f. multi-device (``sharded_phase``): ``clause_table`` ``torch.equal``
+     to its plain twin and to the dense oracle on models a and b's
+     weighted clause tables at 8192 rows, on tm-paper (10 x 128 x 784,
+     lc_cap 160, batch 8192) and tm-xl (64 x 512 x 4096, lc_cap 328,
+     batch 32768), random plans at their densities with planted inputs,
+     each timed (events, profiler, bound); with the launches of
+     ``clause_table`` zeroed before and read after, ``build_tm_sharded``
+     on tm-paper and tm-xl on the logical meshes (1, 1), (1, 2), (2, 1),
+     (2, 2) of the card (and (1, 4), which does not divide 10 classes)
+     equal to the dense oracle, one launch per tile, and the ``sharded``
+     engine serving a -> b -> a at 8192 rows per flush through
+     ``TMServer(engine="sharded", mesh=(2, 2))`` and ``Accelerator(mesh=
+     (1, 1))``, equal to the oracle with ``compile_cache_size()`` 1 (each
+     flush timed, its device idle share profiled); then the sharded train
+     engine on a (2, 2) mesh over three chained steps at B = 128 equal to
+     the packed engine, and a recal loop with ``RecalWorker(mesh=)``
+     publishing the packed loop's ``TMProgram`` bytes;
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
-and prints a ``{"kernels": [...]}`` line (all six kernels), the card's name and power limit
+and prints a ``{"kernels": [...]}`` line (all seven kernels), the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase exits nonzero before the result lines; so does a machine
 without CUDA, or a directory that lacks the repo's ``src/repro_torch``.
@@ -977,15 +995,16 @@ def fleet_phase(dev, cfg, served, models, X, oracles):
     """Phase 3e: the fleet (``repro_torch.fleet``) at the width of models a
     and b (``models``: name -> (actions, weights, model); ``oracles``: name
     -> the dense int32 [8192, 10] sums).  Four nodes on the card: ``TMServer``
-    on the ``interp``, ``plan`` and ``popcount`` engines and the
-    ``Accelerator`` façade; the four scenarios of benchmarks/tm_fleet.py,
-    the launches of ``tm_popcount`` and ``interp_stream`` counted."""
+    on the ``interp``, ``plan``, ``popcount`` and ``sharded`` engines (the
+    bench's cycle; the sharded node on a (1, 2) mesh of the card); the four
+    scenarios of benchmarks/tm_fleet.py, the launches of ``tm_popcount``,
+    ``interp_stream`` and ``clause_table`` counted."""
     import threading
     from collections import Counter
 
     import numpy as np
     import torch
-    from repro_torch.accel import Accelerator, TMProgram
+    from repro_torch.accel import TMProgram
     from repro_torch.core import encode
     from repro_torch.fleet import (
         ChaosNode,
@@ -996,6 +1015,8 @@ def fleet_phase(dev, cfg, served, models, X, oracles):
         RolloutManager,
         Router,
     )
+    from repro_torch.dist import make_mesh
+    from repro_torch.kernels.clause_table import kernel as ctk
     from repro_torch.kernels.interp_stream import kernel as isk
     from repro_torch.kernels.tm_popcount import kernel as tmk
     from repro_torch.serve_tm import TMServer
@@ -1019,14 +1040,13 @@ def fleet_phase(dev, cfg, served, models, X, oracles):
                 and np.array_equal(np.asarray(h.class_sums), want))
 
     torch.cuda.synchronize()
-    for mod in (tmk, isk):
+    for mod in (tmk, isk, ctk):
         mod.launches = 0
     nodes = {f"n{i}": TMServer(served, engine=e, device=dev)
              for i, e in enumerate(("interp", "plan", "popcount"))}
-    nodes["n3"] = Accelerator(served, device=dev)
-    engines = [n.executor.name for n in list(nodes.values())[:3]]
-    engines.append(nodes["n3"].engine.name)
-    if engines != ["interp", "plan", "popcount", "popcount"]:
+    nodes["n3"] = TMServer(served, engine="sharded", mesh=make_mesh((1, 2), devices=dev))
+    engines = [n.executor.name for n in nodes.values()]
+    if engines != ["interp", "plan", "popcount", "sharded"]:
         fail(f"phase 3e nodes run {engines}")
     for node in nodes.values():
         node.register("mnist", arts["a"])
@@ -1270,7 +1290,8 @@ def fleet_phase(dev, cfg, served, models, X, oracles):
           f"{dict(faults)}; {chaos_s:.6f} s")
 
     torch.cuda.synchronize()
-    launched = {"tm_popcount": tmk.launches, "interp_stream": isk.launches}
+    launched = {"tm_popcount": tmk.launches, "interp_stream": isk.launches,
+                "clause_table": ctk.launches}
     caches = {name: node.compile_cache_size() for name, node in nodes.items()}
     if any(n != 1 for n in caches.values()):
         fail(f"phase 3e: compile_cache_size() after the swaps: {caches}")
@@ -1279,6 +1300,341 @@ def fleet_phase(dev, cfg, served, models, X, oracles):
             fail(f"phase 3e never launched {name}")
     print(f"fleet 3e: compile_cache_size 1 on every node; launches {launched}; "
           f"phase {time.perf_counter() - t_phase:.3f} s")
+
+
+def plan_from_actions(acts):
+    """The ``DecodedPlan`` that ``decode_to_plan(encode(cfg, acts))`` gives
+    for the include actions ``acts`` (bool tensor [M, C, 2F], any device),
+    read off the actions directly: tm-xl's 5.4M includes are too many for
+    the host walks of ``encode`` and the decode.  Phase 3f checks the two
+    equal at tm-paper."""
+    import torch
+    from repro_torch.core.compress import DecodedPlan
+
+    M, C, L2 = acts.shape
+    nz = torch.nonzero(acts.reshape(M * C, L2))  # sorted by (clause, literal)
+    rows, clause_id = torch.unique_consecutive(nz[:, 0], return_inverse=True)
+    pol = torch.where(rows % C % 2 == 0, 1, -1)
+    return DecodedPlan(
+        lit_idx=nz[:, 1].int().cpu().numpy(),
+        clause_id=clause_id.int().cpu().numpy(),
+        clause_class=(rows // C).int().cpu().numpy(),
+        clause_pol=pol.int().cpu().numpy(),
+        n_classes=M, n_features=L2 // 2,
+    )
+
+
+def random_tm(scfg, seed, dev):
+    """(include actions bool[M, C, 2F], planted inputs bool[B, F]) of a
+    sharded configuration, on ``dev``: each feature is in a clause with
+    probability 2 x ``density`` and as one of its two literals (so the
+    literal density is ``density`` and no clause holds a literal and its
+    negation); input row r sets the features of one random clause so that
+    clause fires on it, the rest of the row random.  Random rows alone
+    would fire no clause of ~80-160 includes."""
+    import torch
+
+    M, C, F, B = scfg.n_classes, scfg.n_clauses, scfg.n_features, scfg.batch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feat = torch.rand((M, C, F), generator=g, device=dev) < 2 * scfg.density
+    neg = torch.rand((M, C, F), generator=g, device=dev) < 0.5
+    acts = torch.stack([feat & ~neg, feat & neg], dim=-1).reshape(M, C, 2 * F)
+    x = torch.rand((B, F), generator=g, device=dev) < 0.5
+    k = torch.randint(0, M * C, (B,), generator=g, device=dev)
+    inc = acts.reshape(M * C, F, 2)[k]
+    x = torch.where(inc[..., 0], True, torch.where(inc[..., 1], False, x))
+    return acts, x
+
+
+def clause_table_work(idx, pol, packed1):
+    """(bytes, operations) the ``clause_table`` function needs on these
+    inputs: each input read once and the sums written once; per row with
+    a nonzero polarity and batch word, the ANDs until the running AND is
+    zero (or every slot), and one add per set bit of its clause word."""
+    import torch
+    from repro_torch.core import popcount
+
+    M, C, lc = idx.shape
+    n, w = packed1.shape
+    n_bytes = 4 * (idx.numel() + pol.numel() + packed1.numel() + M * w * 32)
+    rows = idx.reshape(M * C, lc)[pol.reshape(-1) != 0].long()
+    rows = torch.where(rows < 0, rows + n, rows)
+    ones = torch.full((1, w), -1, dtype=torch.int32, device=packed1.device)
+    table = torch.cat([packed1, ones])  # out of range reads as all ones
+    rows = torch.where((rows >= 0) & (rows < n), rows, n)
+    n_ops = 0
+    for k0 in range(0, rows.shape[0], 4096):
+        r = rows[k0:k0 + 4096]
+        acc = torch.full((r.shape[0], w), -1, dtype=torch.int32, device=r.device)
+        ands = torch.zeros((r.shape[0], w), dtype=torch.int64, device=r.device)
+        for j in range(lc):
+            ands += acc != 0
+            acc &= table[r[:, j]]
+        n_ops += int(ands.sum()) + int(popcount(acc).sum())
+    return n_bytes, n_ops
+
+
+def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
+    """Phase 3f: multi-device on the card.  ``clause_table`` against its
+    twin (models a and b's weighted tables at the served plan, tm-paper
+    and tm-xl with planted inputs), ``build_tm_sharded`` on logical meshes
+    of ``dev`` against the dense oracle, the ``sharded`` engine serving a
+    -> b -> a through ``TMServer`` and ``Accelerator``, and the sharded
+    train engine and a recal loop with ``RecalWorker(mesh=)`` against the
+    packed engine.  ``configs``: the sharded configurations (default
+    ``TM_CONFIGS``).  Returns the ``clause_table`` row of the kernels
+    line."""
+    import numpy as np
+    import torch
+    from repro_torch.accel import Accelerator, CapacityPlan, TMProgram, select_engine
+    from repro_torch.core import (
+        TMConfig, batch_class_sums, decode_to_plan, encode, include_actions,
+        pack_literals, prng, state_from_actions,
+    )
+    from repro_torch.dist import build_tm_sharded, make_mesh, operands_from_plan
+    from repro_torch.dist import TM_CONFIGS, fill_clause_tables
+    from repro_torch.kernels.clause_eval.ops import tm_dense_class_sums
+    from repro_torch.kernels.clause_table import kernel as ctk
+    from repro_torch.kernels.clause_table.ref import clause_table_plain
+    from repro_torch.recal import (
+        Compressor, RecalController, RecalWorker, make_train_engine,
+    )
+    from repro_torch.serve_tm import TMServer
+
+    t_phase = time.perf_counter()
+    configs = TM_CONFIGS if configs is None else configs
+    n_rows = X.shape[0]
+    ones = torch.full((1, n_rows // 32), -1, dtype=torch.int32, device=dev)
+    packed1_x = torch.cat([pack_literals(torch.from_numpy(X).to(dev)), ones])
+
+    # -- 1. clause_table against its twin ----------------------------------
+    cases, max_err = {}, 0
+    for k in "ab":
+        idx, pol = fill_clause_tables(
+            decode_to_plan(models[k][2]), served.class_capacity,
+            served.clause_capacity, served.include_capacity,
+            2 * served.feature_capacity)
+        cases[f"served {k}"] = (torch.from_numpy(idx).to(dev),
+                                torch.from_numpy(pol).to(dev), packed1_x,
+                                oracles[k].T)
+    tms_inputs = {}
+    for name, scfg in configs.items():
+        acts, x = random_tm(scfg, seed=len(name), dev=dev)
+        plan = plan_from_actions(acts)
+        if scfg.n_classes * scfg.n_clauses <= 2048:  # the host walks at tm-paper
+            tcfg = TMConfig(scfg.n_classes, scfg.n_clauses, scfg.n_features)
+            ref = decode_to_plan(encode(tcfg, acts.cpu().numpy()))
+            for f in ("lit_idx", "clause_id", "clause_class", "clause_pol"):
+                if not np.array_equal(getattr(ref, f), getattr(plan, f)):
+                    fail(f"phase 3f: plan_from_actions != decode_to_plan(encode) ({f})")
+        idx, pol = fill_clause_tables(plan, scfg.n_classes, scfg.n_clauses,
+                                      scfg.lc_cap, 2 * scfg.n_features)
+        packed = pack_literals(x)
+        p1 = torch.cat([packed, torch.full((1, packed.shape[1]), -1,
+                                           dtype=torch.int32, device=dev)])
+        # the dense oracle: clause_eval's dense path over the include
+        # actions, and the boolean batch_class_sums on the first 64 rows
+        dense = tm_dense_class_sums(acts.to(torch.int32), packed,
+                                    n_classes=scfg.n_classes)
+        tcfg = TMConfig(scfg.n_classes, scfg.n_clauses, scfg.n_features)
+        state = state_from_actions(tcfg, acts)
+        head = torch.cat([batch_class_sums(tcfg, state, x[i:i + 1])
+                          for i in range(64)])
+        if not torch.equal(head.T, dense[:, :64]):
+            fail(f"phase 3f {name}: the two dense oracles differ")
+        fired = float((dense != 0).any(dim=0).float().mean())
+        print(f"sharded 3f {name}: {scfg.n_classes} x {scfg.n_clauses} x "
+              f"{scfg.n_features}, {plan.n_includes} includes (max "
+              f"{int(plan.includes_per_clause().max())} per clause, lc_cap "
+              f"{scfg.lc_cap}), batch {scfg.batch}; rows with a nonzero sum "
+              f"{fired:.4f}")
+        cases[name] = (torch.from_numpy(idx).to(dev), torch.from_numpy(pol).to(dev),
+                       p1, dense)
+        tms_inputs[name] = (scfg, plan, x.to(torch.uint8).cpu().numpy(), dense)
+        del acts, state
+    rows = {}
+    for name, (idx, pol, p1, want) in cases.items():
+        got = ctk.clause_table(idx, pol, p1)
+        plain = clause_table_plain(idx, pol, p1)
+        torch.cuda.synchronize()
+        err = int((got - plain).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(got, plain):
+            fail(f"phase 3f: clause_table != plain twin on {name}: max abs err {err}")
+        want = want.cpu() if torch.is_tensor(want) else torch.from_numpy(want)
+        if not torch.equal(got[: want.shape[0], : want.shape[1]].cpu(), want):
+            fail(f"phase 3f: clause_table on {name} differs from the dense oracle")
+        k_ms = median_ms(lambda: ctk.clause_table(idx, pol, p1))
+        p_ms = median_ms(lambda: clause_table_plain(idx, pol, p1),
+                         reps=3 if p1.numel() > 1 << 22 else PLAIN_REPS, warmup=1)
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            for _ in range(10):
+                ctk.clause_table(idx, pol, p1)
+            torch.cuda.synchronize()
+        us, n_dev, _ = device_per_call(prof, 10)
+        n_bytes, n_ops = clause_table_work(idx, pol, p1)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        rows[name] = (k_ms, p_ms, bound_ms, bound_by, None)
+        print(f"time 3f clause_table {name} {tuple(idx.shape)} x "
+              f"{tuple(p1.shape)}: kernel {k_ms:.6f} ms, {us:.3f} us on the "
+              f"device ({n_dev} operation), plain {p_ms:.6f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}; {n_bytes} B, {n_ops} ops); "
+              f"equal to the twin and the oracle")
+    del cases
+
+    # -- 2. the main path: build_tm_sharded and the engine, launches counted
+    torch.cuda.synchronize()
+    ctk.launches = 0
+    meshes = [(1, 1), (1, 2), (2, 1), (2, 2)]
+    for name, (scfg, plan, x_np, dense) in tms_inputs.items():
+        for shape in meshes + ([(1, 4)] if name == "tm-paper" else []):
+            mesh = make_mesh(shape, devices=dev)
+            fn, _ = build_tm_sharded(scfg, mesh)
+            ops = operands_from_plan(scfg, plan, x_np, mesh)
+            before = ctk.launches
+            t0 = time.perf_counter()
+            sums = fn(*ops)
+            torch.cuda.synchronize()
+            call_s = time.perf_counter() - t0
+            tiles = ctk.launches - before
+            if tiles != len(fn.shards) * fn.n_model:
+                fail(f"phase 3f {name} {shape}: {tiles} clause_table launches")
+            if not (torch.equal(sums[:, : scfg.n_classes].T, dense)
+                    and not sums[:, scfg.n_classes:].any()):
+                fail(f"phase 3f: build_tm_sharded {name} on {shape} differs "
+                     f"from the dense oracle")
+            print(f"sharded 3f build_tm_sharded {name} mesh {shape} (Mp "
+                  f"{fn.Mp}, batch axes {fn.bx}): {tiles} tiles, equal to the "
+                  f"dense oracle; first call {call_s * 1e3:.3f} ms (host clock, "
+                  f"packing the int8 literals included)")
+            del ops
+    del tms_inputs
+
+    # the sharded engine serving a -> b -> a, 8192 rows per flush
+    arts = {k: TMProgram(capacity=served, model=models[k][2]) for k in "ab"}
+    nodes = {
+        "TMServer (2, 2)": TMServer(served, engine="sharded",
+                                    mesh=make_mesh((2, 2), devices=dev)),
+        "Accelerator (1, 1)": Accelerator(served, mesh=make_mesh((1, 1), devices=dev)),
+    }
+    for label, node in nodes.items():
+        mesh = node.executor.mesh if isinstance(node, TMServer) else node.engine.mesh
+        if select_engine(served, mesh=mesh) != "sharded":
+            fail(f"phase 3f: select_engine with a mesh picks "
+                 f"{select_engine(served, mesh=mesh)}")
+        for k in "aba":
+            node.register("mnist", arts[k].to_bytes())
+            h = node.submit("mnist", X)
+            node.flush()
+            if not (np.array_equal(np.asarray(h.class_sums), oracles[k])
+                    and np.array_equal(h.result(), oracles[k].argmax(1))):
+                fail(f"phase 3f: {label} serving model {k} differs from the oracle")
+        if node.compile_cache_size() != 1:
+            fail(f"phase 3f: {label} compile_cache_size() {node.compile_cache_size()}")
+    torch.cuda.synchronize()
+    main_launches = ctk.launches
+    if main_launches == 0:
+        fail("phase 3f never launched clause_table")
+    print(f"sharded 3f serve: TMServer(engine='sharded', mesh (2, 2)) and "
+          f"Accelerator(mesh (1, 1)) serve a -> b -> a, 8192 rows per flush, "
+          f"equal to the oracle, compile_cache_size 1; clause_table launches "
+          f"{main_launches}")
+    for label, node in nodes.items():
+        flush_s = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            node.submit("mnist", X)
+            node.flush()
+            flush_s.append(time.perf_counter() - t0)
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            node.submit("mnist", X)
+            node.flush()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ops = device_ops(prof)
+        busy_us = sum(op[0] for op in ops)
+        print(f"time 3f flush of 8192 rows, {label} (submit + flush, host "
+              f"clock): {statistics.median(flush_s) * 1e3:.6f} ms; profile: wall "
+              f"{wall_us:.1f} us, device busy {busy_us:.1f} us (idle share "
+              f"{1 - busy_us / wall_us:.3f})")
+        for us, key, count in ops[:5]:
+            print(f"profile 3f flush {label}: {us:.1f} us  x{count}  {key[:80]}")
+
+    # -- 3. the sharded train engine and a recal loop ----------------------
+    acts_a = models["a"][0]
+    M, C, L = acts_a.shape
+    tcfg = TMConfig(n_classes=M, n_clauses=C, n_features=L // 2)
+    state_a = state_from_actions(tcfg, torch.from_numpy(acts_a).to(dev))
+    tmesh = make_mesh((2, 2), devices=dev)
+    rng = np.random.default_rng(8)
+    steps = [(rng.integers(0, 2, (128, L // 2), dtype=np.uint8),
+              rng.integers(0, M, 128).astype(np.int32)) for _ in range(3)]
+    key = prng.key(5)
+    engines = {"sharded": make_train_engine("sharded", tcfg, mesh=tmesh, batch=128),
+               "packed": make_train_engine("packed", tcfg, device=dev)}
+    finals = {}
+    for name, eng in engines.items():
+        internal = eng.prepare(state_a)
+        for j, (x, y) in enumerate(steps):
+            internal = eng.fit_step(internal, key, x, y, step=j)
+        finals[name] = eng.canonical(internal)
+    if not torch.equal(finals["sharded"], finals["packed"]):
+        fail("phase 3f: the sharded train engine's state != the packed engine's")
+    moved = int((finals["sharded"] != state_a).sum())
+    print(f"sharded 3f train: 3 chained steps at B=128 on mesh (2, 2), equal to "
+          f"the packed engine ({moved} TAs moved)")
+    fit_ms = {name: median_ms(lambda: eng.fit_step(eng.prepare(state_a), key,
+                                                   *steps[0], step=0),
+                              reps=3 if name == "sharded" else REPS, warmup=1)
+              for name, eng in engines.items()}
+    for name, ms in fit_ms.items():
+        print(f"time 3f fit_step B=128 {name} engine (prepare included): {ms:.6f} ms")
+
+    X512, n_train, epochs = X[:512], 384, 2
+    pred_b = oracles["b"][:512].argmax(1).astype(np.int32)
+    include = torch.from_numpy(acts_a).to(dev)
+    state_t = torch.where(include, tcfg.n_states + 8, tcfg.n_states - 7).to(torch.int32)
+    rehearsal = RecalWorker(tcfg, state_t, key=prng.key(6), device=dev)
+    rehearsal.fine_tune_epochs(X512[:n_train], pred_b[:n_train], epochs=epochs, batch=128)
+    model_r = encode(tcfg, include_actions(tcfg, rehearsal.state).cpu().numpy())
+    plan = CapacityPlan.for_models([models["a"][2], model_r], batch_words=256)
+    published = {}
+    for name in ("packed", "sharded"):
+        acc = Accelerator(plan, mesh=make_mesh((1, 2), devices=dev))
+        worker = (RecalWorker(tcfg, state_t, key=prng.key(6), mesh=tmesh)
+                  if name == "sharded" else
+                  RecalWorker(tcfg, state_t, key=prng.key(6), device=dev))
+        if worker.train_engine != name:
+            fail(f"phase 3f: the {name} loop's worker runs {worker.train_engine}")
+        ctl = RecalController(
+            acc, "mnist", worker, compressor=Compressor(plan=plan, engine=acc),
+            buffer_batches=4, epochs_per_recal=epochs, train_batch_size=128,
+            regression_margin=1.0,  # both loops publish, whatever the holdout
+        )
+        ctl.deploy()
+        for i in range(0, 512, 128):
+            ctl.observe(X512[i:i + 128], pred_b[i:i + 128])
+        event = ctl.recalibrate(reason="smoke")
+        torch.cuda.synchronize()
+        if event.rolled_back or event.steps_taken != epochs * n_train // 128:
+            fail(f"phase 3f: the {name} recalibration went wrong: {event}")
+        published[name] = acc.installed_artifact("mnist").to_bytes()
+        print(f"sharded 3f recal loop ({name} worker, sharded serving engine on "
+              f"(1, 2)): {event.steps_taken} steps, holdout acc "
+              f"{event.holdout_acc_before:.4f} -> {event.holdout_acc_after:.4f}; "
+              f"train_s {event.train_s:.6f}, compress_s {event.compress_s:.6f}, "
+              f"swap_s {event.swap_s:.6f}")
+    if published["sharded"] != published["packed"]:
+        fail("phase 3f: the sharded loop published other bytes than the packed loop")
+    print(f"sharded 3f recal: both loops published the same {len(published['packed'])}"
+          f" TMProgram bytes; phase {time.perf_counter() - t_phase:.3f} s")
+    k_ms, p_ms, bound_ms, bound_by, lib = rows["served a"]
+    return ("clause_table", "src/repro/dist/tm_sharded.py:151", main_launches,
+            max_err, (k_ms, p_ms, bound_ms, bound_by, lib))
 
 
 def main() -> int:
@@ -1336,7 +1692,8 @@ def main() -> int:
                           ("tm_interp", ("tm_interp",)),
                           ("tm_popcount", ("clause_words", "reduce")),
                           ("tm_train", ("prologue", "update")),
-                          ("interp_stream", ("decode", "evaluate"))):
+                          ("interp_stream", ("decode", "evaluate")),
+                          ("clause_table", ("clause_table",))):
         for which, kname in enumerate(kernels):
             attr = _build.attributes(name, which)
             print(f"attributes {name} {kname}: numRegs {attr['regs']}, "
@@ -1767,6 +2124,9 @@ def main() -> int:
     # -- 3e. the fleet: pool sweep, rollout under traffic, canary, chaos ---
     fleet_phase(dev, cfg, served, models, X, oracles)
 
+    # -- 3f. multi-device: clause_table, build_tm_sharded, the engines ---
+    sharded_row = sharded_phase(dev, cfg, served, models, X, oracles)
+
     # -- 4. timings --------------------------------------------------------
     def kernel_bound(ops, packed):
         """(bound ms, what bounds it, bytes, operations) on these inputs,
@@ -1856,7 +2216,7 @@ def main() -> int:
                         ("tm_interp", "tm_interp/kernel.py:37")):
         rows.append((kname, f"src/repro/kernels/{body}", path_launches[kname],
                      new_err[kname], new_timings[kname]))
-    rows += [train_row, stream_row]
+    rows += [train_row, stream_row, sharded_row]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -2,10 +2,12 @@
 
   capacity.py   CapacityPlan (the word-quantized synthesis-time envelope,
                 derived from a model population) + CapacityExceeded
-  engine.py     the Engine plugin protocol: @register_engine, priority,
-                make_engine (with ``device=``), select_engine
+  engine.py     the Engine plugin protocol: @register_engine, needs_mesh,
+                priority, make_engine (with ``mesh=``, ``device=``),
+                select_engine (with ``mesh=``)
   engines.py    the built-in plugins: interp (the interp_stream kernel),
-                plan (plain PyTorch), popcount (the tm_popcount kernel)
+                plan (plain PyTorch), sharded (dist.tm_sharded on a mesh,
+                the clause_table kernel), popcount (the tm_popcount kernel)
   program.py    TMProgram — the versioned, checksummed, wire-portable
                 artifact, byte-identical to the reference package's
   facade.py     Accelerator — negotiate, compile, ship, load, serve
@@ -27,7 +29,7 @@ from .engine import (
     register_engine,
     select_engine,
 )
-from .engines import InterpEngine, PlanEngine, PopcountEngine
+from .engines import InterpEngine, PlanEngine, PopcountEngine, ShardedEngine
 from .program import FORMAT_VERSION, TMProgram
 from .facade import Accelerator
 
@@ -56,6 +58,7 @@ __all__ = [
     "PopcountEngine",
     "QUANTA",
     "ServingNode",
+    "ShardedEngine",
     "TMProgram",
     "engine_names",
     "make_engine",

@@ -20,10 +20,14 @@ movement) rather than compiled FOR.  Every engine honours one contract:
                             on CUDA); the batcher packs request rows
                             straight into it (``Batcher.next_batch(out=)``).
 
-``@register_engine(name, priority=)`` registers a plugin; ``select_engine``
-picks the highest priority; ``make_engine(name, plan, device=)`` builds
-one.  Engines run on the CUDA card unless ``device="cpu"`` is passed
-(``repro_torch.device.resolve_device``).
+``@register_engine(name, needs_mesh=, priority=)`` registers a plugin;
+``select_engine(plan, mesh=)`` picks the highest priority among the
+engines eligible for that mesh (with a mesh, only ``needs_mesh`` engines;
+without, only the others); ``make_engine(name, plan, mesh=, device=)``
+builds one, forwarding the mesh only to ``needs_mesh`` engines.  Engines
+run on the CUDA card unless ``device="cpu"`` is passed
+(``repro_torch.device.resolve_device``); a mesh engine runs on its mesh's
+devices (``dist.make_mesh``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ class Engine(Protocol):
     """Structural type of an accelerator engine (see module docstring)."""
 
     name: str
+    needs_mesh: bool
     priority: int
     validated_knobs: tuple
     plan: CapacityPlan
@@ -60,10 +65,11 @@ class Engine(Protocol):
     def compile_cache_size(self) -> int: ...
 
 
-def register_engine(name: str, *, priority: int = 0):
-    """Class decorator registering an engine plugin under ``name``.
-    Re-registering a taken name raises, so auto-selection stays
-    deterministic."""
+def register_engine(name: str, *, needs_mesh: bool = False, priority: int = 0):
+    """Class decorator registering an engine plugin under ``name`` and
+    stamping its capability flags (``needs_mesh``: the engine consumes a
+    device mesh).  Re-registering a taken name raises, so auto-selection
+    stays deterministic."""
 
     def deco(cls):
         if name in ENGINES and ENGINES[name] is not cls:
@@ -72,6 +78,7 @@ def register_engine(name: str, *, priority: int = 0):
                 f"{ENGINES[name].__name__}"
             )
         cls.name = name
+        cls.needs_mesh = bool(needs_mesh)
         cls.priority = int(priority)
         ENGINES[name] = cls
         return cls
@@ -83,27 +90,39 @@ def engine_names() -> list:
     return sorted(ENGINES)
 
 
-def select_engine(plan: Optional[CapacityPlan] = None) -> str:
-    """Deterministically pick the fastest registered engine name (ties
-    break lexicographically).  ``plan`` is part of the contract for
-    plugins whose eligibility depends on the capacity point."""
-    if not ENGINES:
-        raise ValueError("no engine registered")
-    return max(ENGINES.values(), key=lambda c: (c.priority, c.name)).name
+def select_engine(plan: Optional[CapacityPlan] = None, *, mesh=None) -> str:
+    """Deterministically pick the fastest eligible engine name.
+
+    With a mesh, mesh-consuming engines (``needs_mesh``) are the eligible
+    set; without one, the fastest mesh-free engine wins.  Ties break
+    lexicographically.  ``plan`` is part of the contract for plugins whose
+    eligibility depends on the capacity point."""
+    eligible = [c for c in ENGINES.values() if c.needs_mesh == (mesh is not None)]
+    if not eligible:
+        raise ValueError(
+            f"no eligible engine (mesh={'yes' if mesh is not None else 'no'}; "
+            f"registered: {engine_names() or 'none'})"
+        )
+    return max(eligible, key=lambda c: (c.priority, c.name)).name
 
 
 def make_engine(
-    engine: "str | EngineBase", plan: CapacityPlan, *, device=None, **options
+    engine: "str | EngineBase", plan: CapacityPlan, *, mesh=None, device=None,
+    **options,
 ) -> "EngineBase":
     """Name (or a built instance) -> engine on ``device`` (the CUDA card
-    unless ``device="cpu"``); ``options`` go to the engine verbatim."""
+    unless ``device="cpu"``).  ``options`` go to the engine verbatim; the
+    mesh is forwarded only to engines that declare ``needs_mesh``."""
     if isinstance(engine, EngineBase):
         return engine
     if engine not in ENGINES:
         raise ValueError(
             f"unknown engine {engine!r}; registered: {engine_names()}"
         )
-    return ENGINES[engine](plan, device=device, **options)
+    cls = ENGINES[engine]
+    if cls.needs_mesh and mesh is not None:
+        options = {**options, "mesh": mesh}
+    return cls(plan, device=device, **options)
 
 
 class EngineBase:
@@ -111,6 +130,7 @@ class EngineBase:
     the staging tensor and the operand-signature count."""
 
     name = "?"
+    needs_mesh = False
     priority = 0
     # which plan buffers this engine's layout instantiates
     validated_knobs: tuple = CapacityPlan.KNOBS

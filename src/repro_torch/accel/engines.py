@@ -1,6 +1,7 @@
-"""The built-in engine plugins of the port: interp / plan / popcount.
+"""The built-in engine plugins of the port: interp / plan / sharded /
+popcount.
 
-One ``CompressedModel`` contract, three realizations, all bit-exact
+One ``CompressedModel`` contract, four realizations, all bit-exact
 against the ``core.tm.batch_class_sums`` oracle:
 
   * ``interp``   — the paper-faithful stream interpreter
@@ -9,6 +10,11 @@ against the ``core.tm.batch_class_sums`` oracle:
   * ``plan``     — the decoded-plan path (``core.interp.plan_class_sums``):
     gather + segmented reduction in plain PyTorch, parallel across
     includes and datapoints.
+  * ``sharded``  — the ``dist.tm_sharded`` clause-major executor on a
+    (data, model) mesh (classes over ``model``, batch over the data
+    axes), each tile one launch of the hand-written ``clause_table``
+    kernel; on a (1, 1) mesh the single-device realization of the Fig-7
+    multi-core split.  Takes the mesh as an option (``needs_mesh``).
   * ``popcount`` — the popcount bitplane path (``kernels.tm_popcount``):
     clause outputs stay packed 32-bit words until a clause boundary; class
     sums come from popcounts against per-class polarity-bank bitplanes.
@@ -20,7 +26,7 @@ and counts the operand signatures it runs with
 (``compile_cache_size()``); each call copies the pinned staging block
 into a preallocated device buffer without blocking (the counterpart of
 the reference engine donating its feature buffer) and builds its operand
-there.  The reference's ``sharded`` engine is not ported yet.
+there.
 """
 
 from __future__ import annotations
@@ -34,6 +40,9 @@ from ..core.bits import from_u32
 from ..core.compress import CompressedModel, decode_to_plan
 from ..core.interp import interpret_stream, pack_features, pad_plan, plan_class_sums
 from ..core.tm import literals, pack_literals
+from ..device import resolve_device
+from ..dist.sharding import make_mesh
+from ..dist.tm_sharded import TMShardedConfig, build_tm_sharded, fill_clause_tables
 from ..kernels.tm_popcount.kernel import clause_space_masks, tm_popcount
 from ..kernels.tm_popcount.ops import clause_ends, plan_to_popcount_operands
 from .capacity import CapacityExceeded
@@ -131,6 +140,75 @@ class PlanEngine(EngineBase):
                 *operands, n_clause_cap=p.clause_total_capacity,
                 m_cap=p.class_capacity,
             )
+            return sums[:B, : prog["n_classes"]].cpu().numpy()
+
+
+@register_engine("sharded", needs_mesh=True, priority=5)
+class ShardedEngine(EngineBase):
+    """``dist.tm_sharded`` clause-major engine on a (data, model) mesh.
+
+    Built once at CAPACITY shape (classes padded to the model axis, clause
+    tables at clause/include capacity); programming a model fills the
+    fixed-shape tables and puts each class slice on its tiles' devices
+    once, so swaps never change an operand shape.  Each call packs the
+    staging block's literals on the device (no int8 ``[B, 2F+1]`` copy)
+    and runs the executor's packed route.  The default mesh is (1, 1) on
+    ``device``."""
+
+    validated_knobs = (
+        "feature_capacity", "class_capacity",
+        "clause_capacity", "include_capacity",
+    )
+    needs_decoded_plan = True
+
+    def __init__(self, plan, mesh=None, device=None):
+        if mesh is None:
+            mesh = make_mesh((1, 1), devices=resolve_device(device))
+        elif device is not None and resolve_device(device) != mesh.first_device:
+            raise ValueError(
+                f"device {device} is not the mesh's first device "
+                f"{mesh.first_device}; a mesh engine runs where its mesh is"
+            )
+        super().__init__(plan, device=mesh.first_device)
+        self.mesh = mesh
+        cfg = TMShardedConfig(
+            name="serve", n_classes=plan.class_capacity,
+            n_clauses=plan.clause_capacity,
+            n_features=plan.feature_capacity,
+            batch=plan.batch_capacity,
+            include_cap=plan.include_capacity,
+        )
+        self._fn, _ = build_tm_sharded(cfg, mesh)
+        # the all-ones literal row the tables' pad slots point at
+        self._ones = torch.full(
+            (1, plan.batch_words), -1, dtype=torch.int32, device=self.device
+        )
+
+    def _program(self, model: CompressedModel, decoded=None) -> Dict[str, Any]:
+        p = self.plan
+        plan = decoded if decoded is not None else decode_to_plan(model)
+        # plan.validate already bounded clauses/includes per class; the
+        # table fill re-checks as a corruption guard
+        idx, pol = fill_clause_tables(
+            plan, self._fn.Mp, p.clause_capacity, p.include_capacity,
+            2 * p.feature_capacity,
+        )
+        return {
+            "tables": self._fn.place(torch.from_numpy(idx), torch.from_numpy(pol)),
+            "n_classes": model.n_classes,
+            "n_features": model.n_features,
+        }
+
+    def class_sums(self, prog: Dict[str, Any], x: np.ndarray) -> np.ndarray:
+        B = x.shape[0]
+        self._pad_x(x)
+        with self.on_device():
+            packed1 = torch.cat([pack_literals(self.staged_on_device()), self._ones])
+            tables = prog["tables"]
+            self._record_signature(
+                *(t for pair in tables.values() for t in pair), packed1
+            )
+            sums = self._fn.packed(tables, packed1)
             return sums[:B, : prog["n_classes"]].cpu().numpy()
 
 

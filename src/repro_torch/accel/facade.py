@@ -16,11 +16,12 @@ applied to our serving stack).
     acc.load("tenant", acc.compile(model_b), provenance="recal:drift")
     assert acc.compile_cache_size() == 1
 
-The façade auto-selects the fastest registered engine plugin (today the
-popcount engine and its Hopper kernel); pass ``engine=`` to pin one,
-``engine_options=`` for per-engine knobs.  It runs on the CUDA card
-unless ``device="cpu"`` is passed; with no card and no ``"cpu"`` it
-raises rather than fall back.
+The façade auto-selects the fastest eligible engine plugin (the popcount
+engine and its Hopper kernel off-mesh, the sharded engine when a mesh is
+provisioned with ``mesh=``, ``dist.make_mesh``); pass ``engine=`` to pin
+one, ``engine_options=`` for per-engine knobs.  It runs on the CUDA card
+unless ``device="cpu"`` is passed (or the mesh's devices are the CPU);
+with no card and no ``"cpu"`` it raises rather than fall back.
 
 Everything underneath is the serving machinery: an engine plugin
 (``accel.engines``), the versioned slot registry, the priority-lane
@@ -51,6 +52,7 @@ class Accelerator:
         plan: Optional[CapacityPlan] = None,
         *,
         engine: Optional[str] = None,
+        mesh=None,
         device=None,
         engine_options: Optional[dict] = None,
         history_depth: int = 4,
@@ -63,7 +65,7 @@ class Accelerator:
         # engine selection/construction is the serving node's job (the
         # ServingNode boundary): TMServer runs select_engine/make_engine
         self.server = TMServer(
-            self.plan, engine=engine, device=device,
+            self.plan, engine=engine, mesh=mesh, device=device,
             engine_options=engine_options, history_depth=history_depth,
         )
         self.engine = self.server.executor
@@ -76,6 +78,7 @@ class Accelerator:
         headroom: float = 0.0,
         batch_words: int = 4,
         engine: Optional[str] = None,
+        mesh=None,
         device=None,
         engine_options: Optional[dict] = None,
         history_depth: int = 4,
@@ -87,7 +90,8 @@ class Accelerator:
             models, headroom=headroom, batch_words=batch_words
         )
         return cls(
-            plan, engine=engine, device=device, engine_options=engine_options,
+            plan, engine=engine, mesh=mesh, device=device,
+            engine_options=engine_options,
             history_depth=history_depth,
         )
 

@@ -19,7 +19,8 @@ other object is a leaf.
 
 ``restore(step, like)`` places each leaf on the device of ``like``'s
 matching leaf, the port's counterpart of the reference's ``shardings=``
-(a mesh waits for the multi-device slice), in that leaf's dtype.  The
+(its mesh form, used only by the LM scaffolding's elastic reshard, is
+not ported), in that leaf's dtype.  The
 reference keeps the saved dtype; the port casts, so that a reference PRNG
 key saved as uint32 words restores as the port's int64 key words
 (``convert.key_from_numpy``).  A value that does not survive the cast

@@ -44,6 +44,7 @@ from .tm import (
 )
 from .train import (
     accuracy,
+    class_slice_delta,
     fit,
     fit_step,
     sample_class_delta,
@@ -87,6 +88,7 @@ __all__ = [
     "wrap_i32",
     # training (core.train)
     "accuracy",
+    "class_slice_delta",
     "fit",
     "fit_step",
     "sample_class_delta",

@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from .bits import wrap_i32
 
@@ -144,16 +145,24 @@ def predict_weighted(
 # Bitpacked inference (paper §3: 32 datapoints per machine word)
 # ---------------------------------------------------------------------------
 
+def pack_columns(bits: torch.Tensor) -> torch.Tensor:
+    """{0,1}[B, L] -> int32[L, ceil(B / 32)] packed words; bit b of word w
+    holds row 32w + b (rows past B pack as 0)."""
+    B, L = bits.shape
+    x = bits.to(torch.int64)
+    if B % 32:  # a pad is a copy: only a ragged batch pays for it
+        x = F.pad(x, (0, 0, 0, -B % 32))
+    x = x.T.reshape(L, -1, 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return wrap_i32((x << shifts).sum(dim=-1))
+
+
 def pack_literals(x: torch.Tensor) -> torch.Tensor:
     """{0,1}[B, F] with B % 32 == 0 -> int32[2F, B // 32] packed words;
     bit b of word w holds datapoint 32w + b."""
-    lits = literals(x).to(torch.int64)  # [B, 2F]
-    B, L2 = lits.shape
-    if B % 32:
-        raise ValueError(f"batch {B} must be a multiple of 32 for bit packing")
-    lits = lits.T.reshape(L2, B // 32, 32)
-    shifts = torch.arange(32, dtype=torch.int64, device=lits.device)
-    return wrap_i32((lits << shifts).sum(dim=-1))
+    if x.shape[0] % 32:
+        raise ValueError(f"batch {x.shape[0]} must be a multiple of 32 for bit packing")
+    return pack_columns(literals(x))
 
 
 def unpack_bits(words: torch.Tensor) -> torch.Tensor:

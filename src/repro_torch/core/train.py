@@ -290,6 +290,43 @@ def sample_class_delta(
     )
 
 
+def class_slice_delta(
+    cfg: TMConfig,
+    class_state: torch.Tensor,  # int32[Mc, C, 2F]  the rows of classes m0..m0+Mc-1
+    m0: int,
+    keys: torch.Tensor,  # [B, 2] the samples' keys (from ``sample_keys``)
+    xb: torch.Tensor,  # {0,1}[B, F]
+    yb: torch.Tensor,  # int[B]
+) -> torch.Tensor:
+    """The summed feedback of a batch restricted to a class-row slice:
+    ``sum_i sample_class_delta(cfg, class_state, m0 + arange(Mc), keys[i],
+    xb[i], yb[i])``, computed for the rows each sample touches only (its
+    target ``y`` and its negative, when they fall in the slice), in
+    chunks of (sample, row) pairs, and scatter-added (integer addition
+    commutes, so the sum is the per-sample one)."""
+    Mc, C, L = class_state.shape
+    dev = class_state.device
+    sub = prng.split(keys.to(dev), 3)  # k_neg, k_tgt, k_not
+    y = yb.to(device=dev, dtype=torch.int64)
+    neg = _negatives(cfg, sub[:, 0], y)
+    rows = torch.stack([y, neg], dim=1).reshape(-1) - m0  # [2B] (target, negative)
+    pick = torch.nonzero((rows >= 0) & (rows < Mc)).flatten()
+    rows = rows[pick]
+    row_keys = sub[:, 1:].reshape(-1, 2)[pick]
+    is_target = (pick % 2) == 0
+    lits = literals(xb.to(dev))[pick // 2]
+    summed = torch.zeros_like(class_state)
+    n = 2 * chunk_samples(cfg)
+    for i0 in range(0, pick.numel(), n):
+        r = rows[i0:i0 + n]
+        rows_state = class_state[r]  # [n, C, 2F]
+        new = _class_feedback(
+            cfg, row_keys[i0:i0 + n], rows_state, lits[i0:i0 + n], is_target[i0:i0 + n]
+        )
+        summed.index_add_(0, r, new - rows_state)
+    return summed
+
+
 def fit_step(
     cfg: TMConfig,
     state: torch.Tensor,

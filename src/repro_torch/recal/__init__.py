@@ -5,8 +5,9 @@ the port of ``repro.recal``.
                     statistics over served predictions; decides WHEN
   train_engine.py   TrainEngine plugin registry — HOW one update runs
                     ('reference' plain PyTorch, 'packed' the fused int8
-                    ``tm_train`` kernel; bit-identical to each other and
-                    to the reference package)
+                    ``tm_train`` kernel, 'sharded' the class-sharded
+                    ``dist.steps`` step on a mesh; bit-identical to each
+                    other and to the reference package)
   worker.py         RecalWorker — incremental fold-in-seeded fine-tuning
                     through a TrainEngine; produces the new TA state
   compressor.py     Compressor — an optional prune policy
@@ -16,8 +17,8 @@ the port of ``repro.recal``.
   controller.py     RecalController — drain-then-swap publication through
                     the serving node, post-swap validation, auto-rollback
 
-Training runs on the CUDA card unless ``device="cpu"`` is passed.  The
-reference's mesh-sharded train engine is not ported yet.
+Training runs on the CUDA card unless ``device="cpu"`` is passed (or a
+mesh on the CPU, ``mesh=dist.make_mesh(..., devices="cpu")``).
 """
 
 from .compressor import CompressionReport, Compressor
@@ -27,6 +28,7 @@ from .train_engine import (
     TRAIN_ENGINES,
     PackedTrainEngine,
     ReferenceTrainEngine,
+    ShardedTrainEngine,
     TrainEngine,
     TrainEngineBase,
     make_train_engine,
@@ -46,6 +48,7 @@ __all__ = [
     "RecalEvent",
     "RecalWorker",
     "ReferenceTrainEngine",
+    "ShardedTrainEngine",
     "TRAIN_ENGINES",
     "TrainEngine",
     "TrainEngineBase",

@@ -55,11 +55,14 @@ class Compressor:
         probe_seed: int = 0,
         plan: Optional[CapacityPlan] = None,
         engine=None,
+        validate_knobs=None,
     ):
         """``plan`` turns the gate capacity-aware and the report
         artifact-bearing.  Pass the TARGET ``engine`` (or serving node)
         to gate on exactly the check its load path will repeat
-        (``validate_model``); a plan alone is checked in full."""
+        (``validate_model``); ``validate_knobs`` instead narrows a plain
+        plan check to a knob subset (None = the full envelope,
+        conservative for every engine)."""
         self.probe_rows = probe_rows
         self.probe_seed = probe_seed
         self.engine = engine
@@ -69,6 +72,7 @@ class Compressor:
             if plan is None:
                 plan = getattr(engine, "capacity", None)
         self.plan = plan
+        self.validate_knobs = validate_knobs
 
     def compress(
         self,
@@ -121,7 +125,7 @@ class Compressor:
             self.engine.validate_model(model)
             artifact = TMProgram(capacity=self.plan, model=model)
         elif self.plan is not None:
-            self.plan.validate(model)
+            self.plan.validate(model, self.validate_knobs)
             artifact = TMProgram(capacity=self.plan, model=model)
         shrink: Tuple[Tuple[str, int, int], ...] = ()
         if artifact is not None:

@@ -22,16 +22,13 @@ contract of ``core.train``:
 
 ``@register_train_engine`` stamps ``needs_mesh`` and ``priority``;
 ``supports(cfg)`` narrows a class to the configs its representation
-holds.  ``make_train_engine(name, cfg, *, plan=None, device=None,
-**options)`` builds one.  Engines run on ``device``: the
-CUDA card unless the caller passes ``device="cpu"``
-(``repro_torch.device.resolve_device``).  ``plan`` opts every engine
-into the negotiated ``CapacityPlan`` batch envelope
-(``CapacityExceeded``).
-
-No mesh-consuming engine is ported yet (the reference's ``sharded``
-engine), so ``select_train_engine`` with a mesh finds no eligible
-engine.
+holds.  ``make_train_engine(name, cfg, *, mesh=None, plan=None,
+device=None, **options)`` builds one, forwarding the mesh only to
+``needs_mesh`` engines (the ``sharded`` engine, ``dist.steps``).
+Engines run on ``device``: the CUDA card unless the caller passes
+``device="cpu"`` (``repro_torch.device.resolve_device``); the sharded
+engine runs on its mesh's devices.  ``plan`` opts every engine into the
+negotiated ``CapacityPlan`` batch envelope (``CapacityExceeded``).
 """
 
 from __future__ import annotations
@@ -44,7 +41,10 @@ import torch
 from ..core.tm import TMConfig
 from ..core.train import fit_step as _core_fit_step
 from ..core.train import validate_batch_capacity
+from ..core import prng
 from ..device import resolve_device
+from ..dist.sharding import make_mesh
+from ..dist.steps import make_tm_train_step
 from ..kernels.tm_train import (
     fused_fit_step,
     pack_ta_state,
@@ -125,12 +125,14 @@ def make_train_engine(
     engine: "str | TrainEngineBase",
     cfg: TMConfig,
     *,
+    mesh=None,
     plan=None,
     device=None,
     **options,
 ) -> "TrainEngineBase":
     """Uniform plugin construction: name (or a built instance) -> engine
-    on ``device``.  ``options`` go to the engine verbatim."""
+    on ``device``.  ``options`` go to the engine verbatim; the mesh is
+    forwarded only to engines that declare ``needs_mesh``."""
     if isinstance(engine, TrainEngineBase):
         return engine
     if engine not in TRAIN_ENGINES:
@@ -138,7 +140,10 @@ def make_train_engine(
             f"unknown train engine {engine!r}; registered: "
             f"{train_engine_names()}"
         )
-    return TRAIN_ENGINES[engine](cfg, plan=plan, device=device, **options)
+    cls = TRAIN_ENGINES[engine]
+    if cls.needs_mesh and mesh is not None:
+        options = {**options, "mesh": mesh}
+    return cls(cfg, plan=plan, device=device, **options)
 
 
 class TrainEngineBase:
@@ -237,3 +242,56 @@ class PackedTrainEngine(TrainEngineBase):
 
     def _fit_step(self, internal, key, xb, yb, *, step: int):
         return fused_fit_step(self.cfg, internal, key, xb, yb, step=step)
+
+
+@register_train_engine("sharded", needs_mesh=True, priority=1)
+class ShardedTrainEngine(TrainEngineBase):
+    """The class-sharded step of ``dist.steps.make_tm_train_step``:
+    classes over ``model``, batch over the data axes, integer deltas
+    summed per class slice; bit-identical to the reference on any mesh.
+    Its internal state is the tuple of class slices, each on its home
+    device between steps.
+
+    The step is built for ONE batch size: ``batch`` pins it at
+    construction; otherwise it binds to the first batch seen.  Other
+    batch sizes fall back to the reference path (bit-identical anyway).
+    The default mesh is (1, 1) on ``device``."""
+
+    def __init__(self, cfg: TMConfig, *, mesh=None, plan=None, device=None,
+                 batch: int = 0):
+        if mesh is None:
+            mesh = make_mesh((1, 1), devices=resolve_device(device))
+        elif device is not None and resolve_device(device) != mesh.first_device:
+            raise ValueError(
+                f"device {device} is not the mesh's first device "
+                f"{mesh.first_device}; a mesh engine runs where its mesh is"
+            )
+        super().__init__(cfg, plan=plan, device=mesh.first_device)
+        self.mesh = mesh
+        # the class split is fixed by the mesh (a model axis that does not
+        # divide n_classes raises here); 0 leaves the batch to the first
+        # step, the slices' homes do not depend on it
+        self._batch = int(batch)
+        self._step = make_tm_train_step(cfg, mesh, batch=self._batch or 1)
+
+    def prepare(self, state) -> tuple:
+        return self._step.split(self._on_device(state, np.int32))
+
+    def canonical(self, internal) -> torch.Tensor:
+        return self._step.join(internal, self.device)
+
+    def _fit_step(self, internal, key, xb, yb, *, step: int):
+        if not self._batch:
+            self._batch = int(xb.shape[0])
+            self._step = make_tm_train_step(self.cfg, self.mesh, batch=self._batch)
+        if xb.shape[0] == self._batch:
+            # same bits as the local path: fold_in(key, step) is the call
+            # key, global sample i trains under fold_in(call_key, i)
+            return self._step.step_slices(
+                internal, prng.fold_in(key, step), xb, yb
+            )
+        state = _core_fit_step(
+            self.cfg, self.canonical(internal), key, xb, yb, step=step,
+            parallel=True,
+        )
+        return self._step.split(state)

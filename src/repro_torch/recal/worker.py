@@ -11,13 +11,18 @@ HOW each update runs is a ``TrainEngine`` plugin (``train_engine.py``):
 the worker holds the engine's internal representation (int8 for the
 'packed' engine) on the engine's device, the CUDA card unless
 ``device="cpu"``, and converts to the canonical ``int32[M, C, 2F]``
-tensor only at the ``state``/``snapshot`` boundary.  The reference's
-mesh construction (``mesh=``, ``sharded_batch=``) waits for a ported
-mesh engine.
+tensor only at the ``state``/``snapshot`` boundary.  ``mesh=`` (a
+``dist.make_mesh`` mesh) auto-selects the class-sharded 'sharded'
+engine.
+
+The old ``RecalWorker(cfg, mesh=..., sharded_batch=...)`` construction
+still works (it maps onto the 'sharded' engine) but emits a
+``DeprecationWarning``, once per process.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -30,6 +35,22 @@ from .train_engine import TrainEngineBase, make_train_engine, select_train_engin
 # domain-separation tag of the epoch shuffles (the step counter is added)
 _EPOCH_SHUFFLE = 0x7E000000
 
+_warned_legacy_sharded = False
+
+
+def _warn_legacy_sharded() -> None:
+    global _warned_legacy_sharded
+    if _warned_legacy_sharded:
+        return
+    _warned_legacy_sharded = True
+    warnings.warn(
+        "RecalWorker(mesh=..., sharded_batch=...) is deprecated: pass "
+        "train_engine='sharded' with engine_options={'batch': ...} (or "
+        "just mesh=, which auto-selects the sharded engine)",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+
 
 class RecalWorker:
     def __init__(
@@ -39,20 +60,37 @@ class RecalWorker:
         *,
         key: Optional[torch.Tensor] = None,
         train_engine: "Optional[str | TrainEngineBase]" = None,
+        mesh=None,
         plan=None,
+        engine_options: Optional[dict] = None,
+        sharded_batch: int = 0,
         device=None,
     ):
-        """``train_engine`` names the backend ('reference', 'packed', or a
-        built ``TrainEngineBase``); ``None`` picks the fastest eligible
-        one (``select_train_engine``).  ``plan`` opts training batches
-        into the negotiated capacity envelope (``CapacityExceeded``).  ``state``
-        is a canonical tensor or numpy array (default: all states N);
-        ``key`` a ``core.prng`` key (default ``prng.key(0)``)."""
+        """``train_engine`` names the backend ('reference', 'packed',
+        'sharded', or a built ``TrainEngineBase``); ``None`` picks the
+        fastest engine eligible for (cfg, mesh) (``select_train_engine``).
+        ``engine_options`` go to the plugin constructor verbatim; ``plan``
+        opts training batches into the negotiated capacity envelope
+        (``CapacityExceeded``).  ``state`` is a canonical tensor or numpy
+        array (default: all states N); ``key`` a ``core.prng`` key
+        (default ``prng.key(0)``).
+
+        ``sharded_batch`` is the deprecated pre-engine spelling of the
+        mesh path; with ``mesh`` it maps to the 'sharded' engine pinned at
+        that batch size (and warns, once per process)."""
         self.cfg = cfg
         self.key = key if key is not None else prng.key(0)
+        options = dict(engine_options or {})
+        if sharded_batch:
+            _warn_legacy_sharded()
+            if mesh is not None and train_engine is None:
+                train_engine = "sharded"
+                options.setdefault("batch", int(sharded_batch))
         if train_engine is None:
-            train_engine = select_train_engine(cfg)
-        self.engine = make_train_engine(train_engine, cfg, plan=plan, device=device)
+            train_engine = select_train_engine(cfg, mesh=mesh)
+        self.engine = make_train_engine(
+            train_engine, cfg, mesh=mesh, plan=plan, device=device, **options
+        )
         if state is None:
             state = init_state(cfg, self.key)
         self._internal = self.engine.prepare(state)

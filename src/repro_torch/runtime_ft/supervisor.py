@@ -11,7 +11,8 @@ On a real cluster each ingredient maps 1:1:
     ``deadline_factor`` x the trailing-median step time marks its host
     suspect, and after ``max_strikes`` the supervisor requests a re-shard
     without the suspect host (the reference's elastic.py computes the new
-    layout; the port's waits for the multi-device slice);
+    layout; the port's comes with the LM scaffolding, whose parameter
+    rules it needs);
   * ``HeartbeatTracker``     — dead-node detection by missed heartbeats.
 """
 

@@ -11,11 +11,11 @@ behind the ``Engine`` protocol, capacity is the negotiated
                           structured CapacityExceeded, still a ValueError)
     InterpExecutor     -> accel.engines.InterpEngine
     PlanExecutor       -> accel.engines.PlanEngine
+    ShardedExecutor    -> accel.engines.ShardedEngine
     PopcountExecutor   -> accel.engines.PopcountEngine
     BACKENDS           -> accel.engine.ENGINES (the live plugin registry)
     make_executor(...) -> accel.engine.make_engine(...)
 
-The reference's ``ShardedExecutor`` waits for the port's sharded engine.
 Importing this module emits a ``DeprecationWarning`` once per process (the
 module body runs only on first import); ``make_executor`` warns too.
 """
@@ -26,7 +26,7 @@ import warnings
 
 from ..accel.capacity import CapacityExceeded, CapacityPlan
 from ..accel.engine import ENGINES, EngineBase, make_engine
-from ..accel.engines import InterpEngine, PlanEngine, PopcountEngine
+from ..accel.engines import InterpEngine, PlanEngine, PopcountEngine, ShardedEngine
 
 warnings.warn(
     "repro_torch.serve_tm.executors is deprecated: the executor layer moved "
@@ -40,22 +40,24 @@ warnings.warn(
 ServeCapacity = CapacityPlan
 InterpExecutor = InterpEngine
 PlanExecutor = PlanEngine
+ShardedExecutor = ShardedEngine
 PopcountExecutor = PopcountEngine
 _ExecutorBase = EngineBase
 BACKENDS = ENGINES
 
 
 def make_executor(
-    backend: "str | EngineBase", capacity: CapacityPlan, *, device=None
+    backend: "str | EngineBase", capacity: CapacityPlan, mesh=None, *,
+    device=None,
 ) -> EngineBase:
     """Deprecated: use ``repro_torch.accel.make_engine`` (on ``device``,
-    the card unless ``device="cpu"``)."""
+    the card unless ``device="cpu"``; the mesh goes to mesh engines)."""
     warnings.warn(
         "make_executor is deprecated; use repro_torch.accel.make_engine",
         DeprecationWarning,
         stacklevel=2,
     )
-    return make_engine(backend, capacity, device=device)
+    return make_engine(backend, capacity, mesh=mesh, device=device)
 
 
 __all__ = [
@@ -65,5 +67,6 @@ __all__ = [
     "PlanExecutor",
     "PopcountExecutor",
     "ServeCapacity",
+    "ShardedExecutor",
     "make_executor",
 ]

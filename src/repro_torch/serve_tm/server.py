@@ -20,9 +20,11 @@ which negotiates capacity from the model population and adds the
 portable ``TMProgram`` artifact path; ``TMServer`` remains the serving
 core underneath it.  Engines come from the ``repro_torch.accel`` plugin
 registry: pass ``backend=<name>`` to pin one, a built engine via
-``engine=``, or neither to auto-select the fastest eligible plugin.
-The engine runs on ``device`` (see ``repro_torch.device.resolve_device``):
-the CUDA card unless the caller passes ``device="cpu"``.
+``engine=``, or neither to auto-select the fastest eligible plugin
+(``mesh=`` makes the mesh engines the eligible set and is forwarded to
+the one chosen).  The engine runs on ``device`` (see
+``repro_torch.device.resolve_device``): the CUDA card unless the caller
+passes ``device="cpu"``; a mesh engine runs on its mesh's devices.
 
 Tenancy: each slot is one model; requests are batched PER SLOT (models
 cannot share an engine pass) but all slots share the single compiled
@@ -66,6 +68,7 @@ class TMServer:
         self,
         capacity: Optional[CapacityPlan] = None,
         backend: "Optional[str | EngineBase]" = None,
+        mesh=None,
         *,
         engine: "Optional[str | EngineBase]" = None,
         engine_options: Optional[dict] = None,
@@ -79,9 +82,10 @@ class TMServer:
         self.capacity = capacity if capacity is not None else CapacityPlan()
         chosen = engine if engine is not None else backend
         if chosen is None:
-            chosen = select_engine(self.capacity)
+            chosen = select_engine(self.capacity, mesh=mesh)
         self.executor = make_engine(
-            chosen, self.capacity, device=device, **(engine_options or {})
+            chosen, self.capacity, mesh=mesh, device=device,
+            **(engine_options or {})
         )
         self.registry = ModelRegistry(
             self.executor, history_depth=history_depth

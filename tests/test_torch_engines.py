@@ -5,7 +5,9 @@ same ``TMProgram`` bytes, weighted and weightless, served through the
 port's ``Accelerator(engine=...)`` give the reference's class sums and the
 dense oracle's, across hot-swaps and a rollback with one operand
 signature; the engines keep the reference's capabilities and capacity
-checks; auto-selection still picks ``popcount``.
+checks; auto-selection still picks ``popcount`` (the ``sharded`` engine,
+registered beside them, is eligible only with a mesh:
+tests/test_torch_sharded_engine.py).
 """
 
 import numpy as np
@@ -50,11 +52,12 @@ def _oracle(cfg, acts, w, x):
 
 
 def test_registry_and_auto_selection():
-    assert engine_names() == ["interp", "plan", "popcount"]
+    assert engine_names() == ["interp", "plan", "popcount", "sharded"]
     assert ENGINES["interp"] is InterpEngine and ENGINES["plan"] is PlanEngine
     assert select_engine() == select_engine(CapacityPlan()) == "popcount"
-    for name in ("interp", "plan", "popcount"):
+    for name in ("interp", "plan", "popcount", "sharded"):
         ours, theirs = ENGINES[name], JENGINES[name]
+        assert ours.needs_mesh == theirs.needs_mesh
         assert ours.priority == theirs.priority
         assert ours.validated_knobs == theirs.validated_knobs
         assert ours.instruction_metric == theirs.instruction_metric

@@ -1,6 +1,6 @@
 """repro_torch.fleet on the CPU: the cases of tests/test_fleet.py on the
-port's nodes (``TMServer`` on the ``interp``, ``plan`` and ``popcount``
-engines and the ``Accelerator`` façade, all ``device="cpu"``), every
+port's nodes (``TMServer`` on the ``interp``, ``plan``, ``popcount`` and
+``sharded`` engines and the ``Accelerator`` façade, all on the CPU), every
 served prediction and class sum held to the reference's
 ``batch_class_sums`` with tolerance 0 — pool membership behind the
 ServingNode boundary, routed replica traffic (least-depth, failover,
@@ -19,6 +19,7 @@ from repro.core import batch_class_sums, state_from_actions
 from repro_torch.accel import Accelerator, CapacityPlan, TMProgram
 from repro_torch.core import TMConfig
 from repro_torch.core.compress import encode
+from repro_torch.dist import make_mesh
 from repro_torch.fleet import (
     FleetPool,
     NoEligibleNode,
@@ -39,14 +40,16 @@ SMALL = CapacityPlan(
     clause_capacity=8, include_capacity=8, batch_words=1,
 )
 
-# the port's engines and its façade; the reference's fourth, ``sharded``,
-# waits for the multi-device slice
-ENGINES = ("interp", "plan", "popcount", "accelerator")
+# the reference's four engines in its order, then the façade; the sharded
+# node runs a (1, 2) CPU mesh.  Pools that cycle them all have 5 nodes
+ENGINES = ("interp", "plan", "popcount", "sharded", "accelerator")
 
 
 def _node(engine=None, cap=CAP):
     if engine == "accelerator":
         return Accelerator(cap, device="cpu")
+    if engine == "sharded":
+        return TMServer(cap, engine="sharded", mesh=make_mesh((1, 2), devices="cpu"))
     return TMServer(cap, engine=engine, device="cpu")
 
 
@@ -127,16 +130,16 @@ def test_router_least_depth_routing_and_bit_exactness():
     rng = np.random.default_rng(1)
     cfg, acts, model = _random_model(rng, 5, 12, 40)
     art = _program(model)
-    pool = _pool(4, slot="m", artifact=art)
+    pool = _pool(5, slot="m", artifact=art)
     router = Router(pool)
     with pytest.raises(NoEligibleNode, match="no node hosts"):
         router.route("ghost")
     handles = []
-    for _ in range(8):  # loops not running -> queues accumulate
+    for _ in range(10):  # loops not running -> queues accumulate
         x = rng.integers(0, 2, (10, 40)).astype(np.uint8)
         handles.append((router.submit("m", x), x))
     # least-depth + join-order tie-break round-robins a uniform load
-    assert [h.routed_to for h, _ in handles] == ["n0", "n1", "n2", "n3"] * 2
+    assert [h.routed_to for h, _ in handles] == ["n0", "n1", "n2", "n3", "n4"] * 2
     for _, node in pool.items():
         node.flush()
     for h, x in handles:
@@ -233,7 +236,7 @@ def test_rollout_success_canary_wave_fleet():
     cfg1, acts1, m1 = _random_model(rng, 5, 12, 40)
     cfg2, acts2, m2 = _random_model(rng, 5, 12, 40)
     v1, v2 = _program(m1), _program(m2)
-    pool = _pool(4, slot="m", artifact=v1)
+    pool = _pool(5, slot="m", artifact=v1)
     X = rng.integers(0, 2, (64, 40)).astype(np.uint8)
     y2 = _oracle_sums(cfg2, acts2, X).argmax(1)  # the NEW program's truth
     report = RolloutManager(pool).rollout(
@@ -241,7 +244,7 @@ def test_rollout_success_canary_wave_fleet():
     )
     assert report.completed and report.failed_stage is None
     assert [s.stage for s in report.stages] == ["canary", "wave", "fleet"]
-    assert [len(s.nodes) for s in report.stages] == [1, 2, 1]
+    assert [len(s.nodes) for s in report.stages] == [1, 2, 2]
     assert all(s.passed and s.bit_exact and s.checksum_ok
                for s in report.stages)
     # the new program aces its own holdout on every node
@@ -261,7 +264,7 @@ def test_rollout_canary_accuracy_failure_rolls_back():
     cfg1, acts1, m1 = _random_model(rng, 5, 12, 40)
     _, _, bad = _random_model(rng, 5, 12, 40)
     v1, v2 = _program(m1), _program(bad)
-    pool = _pool(4, slot="m", artifact=v1)
+    pool = _pool(5, slot="m", artifact=v1)
     X = rng.integers(0, 2, (64, 40)).astype(np.uint8)
     y1 = _oracle_sums(cfg1, acts1, X).argmax(1)  # CURRENT program's truth
     with pytest.raises(RolloutAborted) as ei:

@@ -1,8 +1,9 @@
 """The port neither leaks into the reference nor falls back on its own:
 it imports no JAX and nothing of ``repro`` (every module, the kernel
 packages ``tm_popcount``, ``tm_interp``, ``clause_eval``,
-``clause_matmul``, ``tm_train`` and ``interp_stream``, ``prune``,
-``data`` and ``core.runtime`` among them, imports without ``nvcc``);
+``clause_matmul``, ``tm_train``, ``interp_stream`` and ``clause_table``,
+``prune``, ``data``, ``dist`` and ``core.runtime`` among them, imports
+without ``nvcc``);
 its entry points refuse to run without a CUDA card unless
 ``device="cpu"`` is asked for; the kernel wrappers send a CUDA tensor to
 the kernel, never to the plain twin; and the deprecated executor shim
@@ -22,21 +23,25 @@ from repro_torch.accel import Accelerator, CapacityPlan, make_engine
 from repro_torch.core import compress, tm
 from repro_torch.core.bits import from_u32
 from repro_torch.device import resolve_device
+from repro_torch.dist import make_mesh
 from repro_torch.kernels import _build
 from repro_torch.kernels.tm_popcount import kernel, ops
 from repro_torch.recal import RecalWorker, make_train_engine
 from repro_torch.serve_tm import TMServer
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-KERNELS = ["clause_eval", "clause_matmul", "interp_stream", "tm_interp", "tm_popcount",
-           "tm_train"]
+KERNELS = ["clause_eval", "clause_matmul", "clause_table", "interp_stream", "tm_interp",
+           "tm_popcount", "tm_train"]
 MODULES = ["repro_torch.core.runtime", "repro_torch.core.interp",
            "repro_torch.core.booleanize", "repro_torch.data.pipeline",
            "repro_torch.prune.rank", "repro_torch.prune.passes",
            "repro_torch.serve_tm.executors", "repro_torch.fleet.pool",
            "repro_torch.fleet.router", "repro_torch.fleet.health",
            "repro_torch.fleet.chaos", "repro_torch.fleet.rollout",
-           "repro_torch.runtime_ft.supervisor", "repro_torch.checkpoint.manager"]
+           "repro_torch.runtime_ft.supervisor", "repro_torch.checkpoint.manager",
+           "repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.dist.tm_sharded",
+           "repro_torch.dist.steps", "repro_torch.kernels.clause_table.kernel",
+           "repro_torch.kernels.clause_table.ref"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -81,7 +86,8 @@ def _model():
                                    "core.runtime.Accelerator", "MultiCoreAccelerator",
                                    "to_device_bool", "clause_fire_counts",
                                    "vote_contribution", "prune_ranked",
-                                   "PrunePolicy.apply"])
+                                   "PrunePolicy.apply", "make_mesh", "sharded engine",
+                                   "sharded train engine"])
 def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is the card")
@@ -111,6 +117,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
         "prune_ranked": lambda: prune.prune_ranked(cfg, acts, x, y, tolerance=0.1),
         "PrunePolicy.apply": lambda: prune.PrunePolicy(tolerance=0.1).apply(
             cfg, acts, X=x, y=y),
+        "make_mesh": lambda: make_mesh((2, 2)),
+        "sharded engine": lambda: make_engine("sharded", plan),
+        "sharded train engine": lambda: make_train_engine("sharded", cfg),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

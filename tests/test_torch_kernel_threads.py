@@ -13,8 +13,8 @@ import pytest
 
 from repro_torch.kernels import _build
 
-KERNEL_MODULES = ["clause_eval", "clause_matmul", "interp_stream", "tm_interp",
-                  "tm_popcount", "tm_train"]
+KERNEL_MODULES = ["clause_eval", "clause_matmul", "clause_table", "interp_stream",
+                  "tm_interp", "tm_popcount", "tm_train"]
 
 
 def _run(n, target):

@@ -573,7 +573,7 @@ def test_prune_policy_on_the_card_equals_the_cpu(dev):
     assert got.report == want.report
 
 
-@pytest.mark.parametrize("engine", ["interp", "plan"])
+@pytest.mark.parametrize("engine", ["interp", "plan", "sharded"])
 def test_engines_on_the_card_serve_the_cpu_sums(dev, engine):
     from repro_torch.accel import Accelerator
 
@@ -591,3 +591,88 @@ def test_engines_on_the_card_serve_the_cpu_sums(dev, engine):
             sums.append(acc.class_sums("s", x))
         np.testing.assert_array_equal(*sums)
     assert accs[0].compile_cache_size() == 1
+
+
+def _clause_table_case(dev, M, C, lc, l2, w, seed, density=0.5):
+    """A class-major table of random literal rows (weighted polarities up
+    to +-7, some padding rows of polarity 0, pads on the all-ones row,
+    an out-of-range and a negative index) over random packed words with
+    an all-ones row; the literal words are dense in ones so that clauses
+    fire."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, l2, (M, C, lc)).astype(np.int32)
+    n_inc = rng.integers(0, lc + 1, (M, C))
+    idx[np.arange(lc)[None, None] >= n_inc[..., None]] = l2  # pads -> ones row
+    if lc:
+        idx[0, 0, 0], idx[-1, -1, -1] = -1, l2 + 5
+    pol = rng.integers(-7, 8, (M, C)).astype(np.int32)
+    pol[:, -1] = 0
+    words = _u32(rng, (l2, w)) | _u32(rng, (l2, w)) | _u32(rng, (l2, w))
+    packed1 = np.concatenate([words, np.full((1, w), 0xFFFFFFFF, np.uint32)])
+    return (torch.from_numpy(idx).to(dev), torch.from_numpy(pol).to(dev),
+            from_u32(packed1, dev))
+
+
+@pytest.mark.parametrize("M,C,lc,l2,w", [
+    (3, 5, 7, 40, 1), (4, 33, 40, 60, 37), (2, 17, 0, 10, 3),
+    (10, 128, 160, 1568, 256),  # tm-paper's tile at one device
+    (5, 64, 160, 1568, 128),  # one tile of tm-paper on a (2, 2) mesh
+])
+def test_clause_table_kernel_matches_plain_twin(dev, M, C, lc, l2, w):
+    from repro_torch.kernels.clause_table import kernel as ct_kernel
+    from repro_torch.kernels.clause_table.ref import clause_table_plain
+
+    args = _clause_table_case(dev, M, C, lc, l2, w, seed=M * C + lc)
+    before = ct_kernel.launches
+    got = ct_kernel.clause_table(*args)
+    torch.cuda.synchronize()
+    assert ct_kernel.launches == before + 1
+    want = clause_table_plain(*args)
+    assert want.abs().sum() > 0 or lc == 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got.cpu(), clause_table_plain(*(a.cpu() for a in args)),
+                               rtol=0, atol=0)
+
+
+def test_clause_table_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.clause_table import kernel as ct_kernel
+
+    idx, pol, p1 = _clause_table_case(dev, 2, 3, 4, 10, 2, seed=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ct_kernel.clause_table(idx.transpose(0, 1), pol.T, p1)
+    with pytest.raises(ValueError, match="packed1 on"):
+        ct_kernel.clause_table(idx.cpu(), pol.cpu(), p1)
+    with pytest.raises(ValueError, match="65535"):
+        ct_kernel.clause_table(
+            torch.zeros((65536, 1, 1), dtype=torch.int32, device=dev),
+            torch.zeros((65536, 1), dtype=torch.int32, device=dev), p1)
+
+
+def test_sharded_executor_on_logical_meshes_of_the_card(dev):
+    """``build_tm_sharded`` on (1, 1), (1, 2), (2, 1), (2, 2) and (1, 3)
+    meshes of one card: one clause_table launch per tile, the sums equal
+    to the CPU mesh's."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist import tm_sharded as tms
+    from repro_torch.kernels.clause_table import kernel as ct_kernel
+
+    rng = np.random.default_rng(7)
+    cfg = TMConfig(5, 12, 40)
+    acts = rng.random((5, 12, 80)) < 0.05
+    plan = compress.decode_to_plan(compress.encode(cfg, acts, rng.integers(1, 8, (5, 12))))
+    X = rng.integers(0, 2, (128, 40)).astype(np.uint8)
+    scfg = tms.TMShardedConfig("t", 5, 12, 40, batch=128,
+                               include_cap=int(plan.includes_per_clause().max()))
+    for shape in [(1, 1), (1, 2), (2, 1), (2, 2), (1, 3)]:
+        cpu = make_mesh(shape, devices="cpu")
+        fn_c, _ = tms.build_tm_sharded(scfg, cpu)
+        want = fn_c(*tms.operands_from_plan(scfg, plan, X, cpu))
+        mesh = make_mesh(shape, devices=dev)
+        fn, _ = tms.build_tm_sharded(scfg, mesh)
+        ops = tms.operands_from_plan(scfg, plan, X, mesh)
+        before = ct_kernel.launches
+        got = fn(*ops)
+        torch.cuda.synchronize()
+        n_batch = len(fn.shards)
+        assert ct_kernel.launches == before + n_batch * fn.n_model, shape
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)

@@ -58,13 +58,14 @@ def _batch(rng, B, F, M):
 
 
 def test_registry_lists_the_ported_engines():
-    assert train_engine_names() == ["packed", "reference"]
+    assert train_engine_names() == ["packed", "reference", "sharded"]
     assert TRAIN_ENGINES["packed"] is PackedTrainEngine
     assert TRAIN_ENGINES["reference"] is ReferenceTrainEngine
     for name in train_engine_names():
         eng = make_train_engine(name, tm.TMConfig(2, 4, 3), device="cpu")
         assert isinstance(eng, TrainEngine) and eng.name == name
-        assert not eng.needs_mesh and eng.device.type == "cpu"
+        # the sharded engine's default mesh is (1, 1) on the device
+        assert eng.needs_mesh == (name == "sharded") and eng.device.type == "cpu"
 
 
 def test_selection_rules():
@@ -75,11 +76,10 @@ def test_selection_rules():
     assert select_train_engine(wide) == "reference"
     with pytest.raises(ValueError, match="exceeds the packed int8"):
         make_train_engine("packed", wide, device="cpu")
-    # no mesh engine is ported: a mesh request finds none
-    with pytest.raises(ValueError, match="no eligible train engine"):
-        select_train_engine(cfg, mesh=object())
+    # a mesh selects the mesh engine (tests/test_torch_sharded_train.py)
+    assert select_train_engine(cfg, mesh=object()) == "sharded"
     with pytest.raises(ValueError, match="unknown train engine"):
-        make_train_engine("sharded", cfg, device="cpu")
+        make_train_engine("distributed", cfg, device="cpu")
     built = make_train_engine("reference", cfg, device="cpu", parallel=False)
     assert make_train_engine(built, cfg) is built and not built.parallel
 
