@@ -93,10 +93,12 @@ features, ~17k includes, 8192 datapoints per flush) it
      are zeroed before the phase and read after it;
   3f. multi-device (``sharded_phase``): ``clause_table`` ``torch.equal``
      to its plain twin and to the dense oracle on models a and b's
-     weighted clause tables at 8192 rows, on tm-paper (10 x 128 x 784,
-     lc_cap 160, batch 8192) and tm-xl (64 x 512 x 4096, lc_cap 328,
-     batch 32768), random plans at their densities with planted inputs,
-     each timed (events, profiler, bound); with the launches of
+     weighted clause tables at 8192 rows, on model a's table over
+     literals whose last row (the one the pads name) is random, on
+     tm-paper (10 x 128 x 784, lc_cap 160, batch 8192) and tm-xl (64 x
+     512 x 4096, lc_cap 328, batch 32768), random plans at their
+     densities with planted inputs, each timed (events, profiler, bound;
+     registers, shared bytes, spills, grid and cluster); with the launches of
      ``clause_table`` zeroed before and read after, ``build_tm_sharded``
      on tm-paper and tm-xl on the logical meshes (1, 1), (1, 2), (2, 1),
      (2, 2) of the card (and (1, 4), which does not divide 10 classes)
@@ -1376,14 +1378,16 @@ def clause_table_work(idx, pol, packed1):
 
 def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
     """Phase 3f: multi-device on the card.  ``clause_table`` against its
-    twin (models a and b's weighted tables at the served plan, tm-paper
-    and tm-xl with planted inputs), ``build_tm_sharded`` on logical meshes
+    twin (models a and b's weighted tables at the served plan, a's over a
+    random pads' row, tm-paper and tm-xl with planted inputs), ``build_tm_sharded`` on logical meshes
     of ``dev`` against the dense oracle, the ``sharded`` engine serving a
     -> b -> a through ``TMServer`` and ``Accelerator``, and the sharded
     train engine and a recal loop with ``RecalWorker(mesh=)`` against the
     packed engine.  ``configs``: the sharded configurations (default
     ``TM_CONFIGS``).  Returns the ``clause_table`` row of the kernels
     line."""
+    import ctypes
+
     import numpy as np
     import torch
     from repro_torch.accel import Accelerator, CapacityPlan, TMProgram, select_engine
@@ -1392,8 +1396,12 @@ def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
         pack_literals, prng, state_from_actions,
     )
     from repro_torch.dist import build_tm_sharded, make_mesh, operands_from_plan
+    from repro_torch.core.bits import from_u32
     from repro_torch.dist import TM_CONFIGS, fill_clause_tables
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.clause_eval import kernel as cek
     from repro_torch.kernels.clause_eval.ops import tm_dense_class_sums
+    from repro_torch.kernels.clause_eval.ref import class_sums_from_clause_words
     from repro_torch.kernels.clause_table import kernel as ctk
     from repro_torch.kernels.clause_table.ref import clause_table_plain
     from repro_torch.recal import (
@@ -1417,6 +1425,22 @@ def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
         cases[f"served {k}"] = (torch.from_numpy(idx).to(dev),
                                 torch.from_numpy(pol).to(dev), packed1_x,
                                 oracles[k].T)
+    # model a's table over literals whose last row, the one its pads name,
+    # is random and not all ones; the oracle is the dense path over each
+    # table row's own slots, the pads' row as one more literal
+    idx, pol = cases["served a"][:2]
+    M, C, lc = idx.shape
+    if 2 * served.feature_capacity != packed1_x.shape[0] - 1:
+        fail("phase 3f: the served tables' pads do not name the last literal row")
+    rand_row = np.random.default_rng(9).integers(0, 2**32, (1, n_rows // 32),
+                                                 dtype=np.uint64)
+    p1_pads = torch.cat([packed1_x[:-1], from_u32(rand_row.astype(np.uint32), dev)])
+    slots = torch.zeros((M * C, p1_pads.shape[0]), dtype=torch.int32, device=dev)
+    slots.scatter_(1, idx.reshape(M * C, lc).long(), 1)
+    cases["served a, random pad row"] = (
+        idx, pol, p1_pads, class_sums_from_clause_words(
+            cek.clause_eval(slots, p1_pads), pol.reshape(-1), M))
+    del slots
     tms_inputs = {}
     for name, scfg in configs.items():
         acts, x = random_tm(scfg, seed=len(name), dev=dev)
@@ -1453,6 +1477,19 @@ def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
         tms_inputs[name] = (scfg, plan, x.to(torch.uint8).cpu().numpy(), dense)
         del acts, state
     rows = {}
+    attrs = [_build.attributes("clause_table", which) for which in (0, 1)]
+    lib = _build.load("clause_table")
+    resident = {}
+    for vec in (1, 4):
+        for split in range(1, 9):
+            n = ctypes.c_int()
+            _build.raise_on("clause_table", lib.clause_table_max_clusters(
+                vec, split, ctypes.byref(n)), "max_clusters")
+            resident[vec, split] = n.value * split
+    print(f"sharded 3f clause_table resident blocks by split 1..8 (clusters x "
+          f"split, cudaOccupancyMaxActiveClusters): vec1 "
+          f"{[resident[1, s] for s in range(1, 9)]}, vec4 "
+          f"{[resident[4, s] for s in range(1, 9)]}")
     for name, (idx, pol, p1, want) in cases.items():
         got = ctk.clause_table(idx, pol, p1)
         plain = clause_table_plain(idx, pol, p1)
@@ -1477,11 +1514,19 @@ def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
         n_bytes, n_ops = clause_table_work(idx, pol, p1)
         bound_ms, bound_by = bound(n_bytes, n_ops)
         rows[name] = (k_ms, p_ms, bound_ms, bound_by, None)
+        M, C, _ = idx.shape
+        vec, split = ctk.clause_table_shape(M, C, p1.shape[1],
+                                            p1.data_ptr() % 16 == 0)
+        attr = attrs[vec == 4]
         print(f"time 3f clause_table {name} {tuple(idx.shape)} x "
               f"{tuple(p1.shape)}: kernel {k_ms:.6f} ms, {us:.3f} us on the "
               f"device ({n_dev} operation), plain {p_ms:.6f} ms, bound "
               f"{bound_ms:.6f} ms ({bound_by}; {n_bytes} B, {n_ops} ops); "
-              f"equal to the twin and the oracle")
+              f"vec{vec}: numRegs {attr['regs']}, sharedSizeBytes "
+              f"{attr['shared_bytes']}, localSizeBytes (spills) "
+              f"{attr['local_bytes']}, grid ({-(-p1.shape[1] // (32 * vec)) * split}, "
+              f"{M}) in clusters of ({split}, 1, 1); equal to the twin and "
+              f"the oracle")
     del cases
 
     # -- 2. the main path: build_tm_sharded and the engine, launches counted
@@ -1561,7 +1606,7 @@ def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
               f"clock): {statistics.median(flush_s) * 1e3:.6f} ms; profile: wall "
               f"{wall_us:.1f} us, device busy {busy_us:.1f} us (idle share "
               f"{1 - busy_us / wall_us:.3f})")
-        for us, key, count in ops[:5]:
+        for us, key, count in ops[:5] + [op for op in ops[5:] if "clause_table" in op[1]]:
             print(f"profile 3f flush {label}: {us:.1f} us  x{count}  {key[:80]}")
 
     # -- 3. the sharded train engine and a recal loop ----------------------
@@ -1693,7 +1738,7 @@ def main() -> int:
                           ("tm_popcount", ("clause_words", "reduce")),
                           ("tm_train", ("prologue", "update")),
                           ("interp_stream", ("decode", "evaluate")),
-                          ("clause_table", ("clause_table",))):
+                          ("clause_table", ("vec1", "vec4"))):
         for which, kname in enumerate(kernels):
             attr = _build.attributes(name, which)
             print(f"attributes {name} {kname}: numRegs {attr['regs']}, "

@@ -13,6 +13,8 @@ plain twin; on CUDA tensors it launches the Hopper kernel of
 ``csrc/clause_table.cu`` or raises; there is no fallback between the two.
 ``launches`` counts the CUDA launches and nothing else.  Packed words are
 int32 tensors holding uint32 bit patterns (``core.bits``).
+``clause_table_shape`` is the launch's shape: the batch words per lane
+and the blocks (one thread-block cluster) that share each output tile.
 """
 
 from __future__ import annotations
@@ -27,6 +29,41 @@ from .ref import clause_table_plain
 
 # CUDA kernel launches made by clause_table (the plain twin never counts)
 launches = 0
+
+# The kernel's blocks have 16 warps; an H100 (132 SMs) keeps 224 to 264
+# of them resident in clusters of 1 to 8 (cudaOccupancyMaxActiveClusters:
+# 32 clusters of 7, 30 of 8), and 8 is the portable cluster size.
+_WARPS = 16
+_SMS = 132
+_RESIDENT_BLOCKS = 224
+_MAX_SPLIT = 8
+
+
+def _split(n_classes: int, n_clauses: int, tiles_per_class: int) -> int:
+    tiles = n_classes * tiles_per_class
+    if tiles <= 0:
+        return 1
+    return max(1, min(_MAX_SPLIT, _RESIDENT_BLOCKS // tiles,
+                      -(-n_clauses // _WARPS)))
+
+
+def clause_table_shape(n_classes: int, n_clauses: int, w_words: int,
+                       aligned: bool = True) -> tuple:
+    """(vec, split) of a launch: the batch words each lane owns (a block's
+    tile is ``32 * vec`` words) and the blocks of one cluster that share a
+    (class, tile).  Four words per lane issue a quarter of the loads; they
+    are taken when packed1's rows are 16-byte aligned (``aligned`` and
+    ``W % 4 == 0``), when one-word tiles would not fill the card, and when
+    four-word tiles, split, still give every SM a block.  The split is one
+    when the tiles fill the card, else as many blocks as stay resident, at
+    most 8 and at most one per 16 of the class's rows (a warp each)."""
+    if (aligned and w_words % 4 == 0
+            and n_classes * -(-w_words // 32) < _RESIDENT_BLOCKS):
+        tiles = -(-w_words // 128)
+        split = _split(n_classes, n_clauses, tiles)
+        if n_classes * tiles * split >= _SMS:
+            return 4, split
+    return 1, _split(n_classes, n_clauses, -(-w_words // 32))
 
 
 def _check_operands(idx, pol, packed1):
@@ -66,7 +103,7 @@ def clause_table(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("clause_table")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.clause_table_launch.argtypes = [p, p, i, i, i, p, i, i, p, p]
+    lib.clause_table_launch.argtypes = [p, p, i, i, i, p, i, i, i, i, p, p]
     lib.clause_table_launch.restype = i
     return lib
 
@@ -84,9 +121,10 @@ def _clause_table_cuda(idx, pol, packed1):
     out = torch.empty((M, w * 32), dtype=torch.int32, device=dev)
     if M == 0:
         return out
+    vec, split = clause_table_shape(M, C, w, packed1.data_ptr() % 16 == 0)
     err = _lib().clause_table_launch(
         idx.data_ptr(), pol.data_ptr(), M, C, lc, packed1.data_ptr(), n, w,
-        out.data_ptr(), _build.stream(dev),
+        vec, split, out.data_ptr(), _build.stream(dev),
     )
     _build.raise_on("clause_table", err, "clause_table")
     _build.count_launches(__name__, 1)

@@ -290,6 +290,66 @@ def test_clause_table_twin_is_the_class_major_executor(case, lc_extra):
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("kind", ["runs", "pad row", "wrap"])
+def test_clause_table_twin_on_repeated_and_wrapped_slots(kind):
+    """The twin equals the reference's clause-major executor on the slot
+    patterns the kernel collapses: runs of a repeated row with pads among
+    them and across slots 32 and 64, pads on a random row (not all ones),
+    and ``-1`` beside ``n_rows - 1``."""
+    rng = np.random.default_rng(5)
+    M, C, lc, l2, w = 3, 9, 70, 40, 3
+    idx = rng.integers(0, l2, (M, C, lc)).astype(np.int32)
+    if kind == "runs":
+        idx[rng.random(idx.shape) < 0.2] = l2
+        repeat = rng.random(idx.shape) < 0.75
+        for j in range(1, lc):
+            idx[..., j] = np.where(repeat[..., j], idx[..., j - 1], idx[..., j])
+        idx[:, :, 28:36] = idx[:, :, 28:29]
+        idx[:, :, 60:70] = idx[:, :, 60:61]
+    else:
+        idx[:, :, 4:] = l2  # pads after four includes
+        idx[0, 0, 1:5] = (-1, l2, -1, l2)
+        idx[1, 2, 31:33] = (l2, -1)
+    pol = rng.integers(-7, 8, (M, C)).astype(np.int32)
+    words = [rng.integers(0, 2**32, (l2 + 1, w), dtype=np.uint64).astype(np.uint32)
+             for _ in range(3)]
+    packed1 = words[0] | words[1] | words[2]
+    if kind == "runs":
+        packed1[-1] = 0xFFFFFFFF
+    cls = np.repeat(np.arange(M, dtype=np.int32), C)
+    want = np.asarray(jtms._local_plan_executor_clausemajor(
+        jnp.asarray(idx.reshape(-1, lc)), jnp.asarray(cls),
+        jnp.asarray(pol.reshape(-1)), jnp.asarray(packed1)))[:M]
+    got = clause_table(torch.from_numpy(idx), torch.from_numpy(pol), from_u32(packed1))
+    assert np.abs(want).sum() > 0
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("M,C,W,aligned,vec,split", [
+    (10, 200, 256, True, 4, 8),  # the served plan on one device
+    (10, 128, 256, True, 4, 8),  # tm-paper on one device
+    (5, 200, 128, True, 1, 8),  # the served plan's tile on a (2, 2) mesh
+    (10, 200, 128, True, 1, 5),  # the served plan's tile on a (1, 2) mesh
+    (5, 64, 128, True, 1, 4),  # tm-paper on a (2, 2) mesh: 64 rows, 4 blocks
+    (64, 512, 1024, True, 1, 1),  # tm-xl: 2,048 tiles fill the card
+    (10, 200, 256, False, 1, 2), (10, 200, 252, True, 4, 8),
+    (10, 200, 250, True, 1, 2), (20, 50, 132, True, 4, 4),
+    (1, 1000, 1, True, 1, 8), (2, 101, 3, True, 1, 7), (28, 200, 1, True, 1, 8),
+    (29, 200, 1, True, 1, 7), (33, 17, 1, True, 1, 2), (112, 40, 1, True, 1, 2),
+    (113, 40, 1, True, 1, 1), (224, 3, 4, True, 1, 1), (3, 0, 5, True, 1, 1),
+    (0, 5, 8, True, 1, 1),
+])
+def test_clause_table_shape_fills_the_card(M, C, W, aligned, vec, split):
+    """The launch's words per lane and blocks per tile: four words where
+    the rows are 16-byte aligned and one-word tiles leave SMs idle while
+    split four-word tiles do not; a tile split over as many blocks as
+    stay resident (224), at most 8 (a portable cluster) and at most one
+    per 16 rows of a class."""
+    assert ctk.clause_table_shape(M, C, W, aligned) == (vec, split)
+    tiles = M * -(-W // (32 * vec))
+    assert split == 1 or tiles * split <= 224
+
+
 def test_clause_table_checks_its_operands():
     idx = torch.zeros((2, 3, 4), dtype=torch.int32)
     pol = torch.zeros((2, 3), dtype=torch.int32)

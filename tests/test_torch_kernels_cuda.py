@@ -593,36 +593,89 @@ def test_engines_on_the_card_serve_the_cpu_sums(dev, engine):
     assert accs[0].compile_cache_size() == 1
 
 
-def _clause_table_case(dev, M, C, lc, l2, w, seed, density=0.5):
+def _clause_table_case(dev, M, C, lc, l2, w, seed, kind="random"):
     """A class-major table of random literal rows (weighted polarities up
     to +-7, some padding rows of polarity 0, pads on the all-ones row,
     an out-of-range and a negative index) over random packed words with
     an all-ones row; the literal words are dense in ones so that clauses
-    fire."""
+    fire.  ``kind`` changes one thing:
+
+    * ``runs``: slots repeat the slot before them in runs, pads stand
+      among the includes, and two runs cross slots 32 and 64;
+    * ``pad row``: the pads' row (the last) is random, not all ones;
+    * ``ones``: every literal word is all ones, so every row walks every
+      slot and fires;
+    * ``wrap``: ``-1`` stands beside ``n_rows - 1`` (the pads' row, random
+      here) in one row, and across slots 31 and 32 in another;
+    * ``offset``: packed1 starts 4 bytes into its buffer, so its rows are
+      not 16-byte aligned.
+    """
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, l2, (M, C, lc)).astype(np.int32)
     n_inc = rng.integers(0, lc + 1, (M, C))
     idx[np.arange(lc)[None, None] >= n_inc[..., None]] = l2  # pads -> ones row
-    if lc:
+    if kind == "runs":
+        idx[rng.random((M, C, lc)) < 0.2] = l2
+        repeat = rng.random((M, C, lc)) < 0.75
+        for j in range(1, lc):
+            idx[..., j] = np.where(repeat[..., j], idx[..., j - 1], idx[..., j])
+        idx[:, :, 28:36] = idx[:, :, 28:29]
+        idx[:, :, 60:70] = idx[:, :, 60:61]
+    if kind == "wrap":
+        idx[0, 0, 1:5] = (-1, l2, -1, l2)
+        idx[-1, 0, 31:33] = (l2, -1)
+    elif lc:
         idx[0, 0, 0], idx[-1, -1, -1] = -1, l2 + 5
     pol = rng.integers(-7, 8, (M, C)).astype(np.int32)
     pol[:, -1] = 0
+    if kind == "wrap":
+        pol[0, 0], pol[-1, 0] = 3, -5
     words = _u32(rng, (l2, w)) | _u32(rng, (l2, w)) | _u32(rng, (l2, w))
-    packed1 = np.concatenate([words, np.full((1, w), 0xFFFFFFFF, np.uint32)])
-    return (torch.from_numpy(idx).to(dev), torch.from_numpy(pol).to(dev),
-            from_u32(packed1, dev))
+    last = np.full((1, w), 0xFFFFFFFF, np.uint32)
+    if kind in ("pad row", "wrap"):
+        last = _u32(rng, (1, w)) | _u32(rng, (1, w))
+    packed1 = np.concatenate([words, last])
+    if kind == "ones":
+        packed1[:] = 0xFFFFFFFF
+    p1 = from_u32(packed1, dev)
+    if kind == "offset":
+        buf = torch.empty(p1.numel() + 1, dtype=torch.int32, device=dev)
+        buf[1:] = p1.reshape(-1)
+        p1 = buf[1:].view(p1.shape)
+    return torch.from_numpy(idx).to(dev), torch.from_numpy(pol).to(dev), p1
 
 
-@pytest.mark.parametrize("M,C,lc,l2,w", [
-    (3, 5, 7, 40, 1), (4, 33, 40, 60, 37), (2, 17, 0, 10, 3),
-    (10, 128, 160, 1568, 256),  # tm-paper's tile at one device
-    (5, 64, 160, 1568, 128),  # one tile of tm-paper on a (2, 2) mesh
+def _random(*shape):  # a case of random tables, under its earlier id
+    return pytest.param(*shape, "random", id="-".join(map(str, shape)))
+
+
+@pytest.mark.parametrize("M,C,lc,l2,w,kind", [
+    _random(3, 5, 7, 40, 1), _random(4, 33, 40, 60, 37), _random(2, 17, 0, 10, 3),
+    _random(10, 128, 160, 1568, 256),  # tm-paper's tile at one device
+    _random(5, 64, 160, 1568, 128),  # one tile of tm-paper on a (2, 2) mesh
+    (3, 40, 100, 60, 5, "runs"), (10, 128, 160, 1568, 256, "runs"),
+    (4, 33, 40, 60, 37, "pad row"),
+    (10, 200, 20, 1568, 256, "pad row"),  # the served plan's table
+    (3, 50, 70, 40, 9, "ones"), (10, 128, 160, 1568, 256, "ones"),
+    (2, 5, 40, 30, 2, "wrap"), (10, 200, 40, 1568, 256, "wrap"),
+    (10, 200, 20, 1568, 256, "offset"),  # one word per lane, not four
+    # the launch shape and its edges (kernel.clause_table_shape): 8
+    # blocks on one tile; splits of 7 and 8 that do not divide C; the
+    # last tile count that splits 8 ways and the first that splits 7; 2
+    # blocks where the rows allow no more; tiles that fill the card (no
+    # split); four words per lane with a ragged last tile, and with one
+    # lane of a tile live
+    (1, 1000, 7, 40, 1, "random"), (2, 101, 40, 60, 3, "random"),
+    (1, 129, 3, 10, 33, "random"), (28, 200, 5, 30, 1, "random"),
+    (29, 200, 5, 30, 1, "random"), (33, 17, 5, 30, 1, "random"),
+    (224, 3, 4, 10, 1, "random"), (20, 50, 30, 60, 132, "random"),
+    (40, 64, 9, 30, 4, "random"),
 ])
-def test_clause_table_kernel_matches_plain_twin(dev, M, C, lc, l2, w):
+def test_clause_table_kernel_matches_plain_twin(dev, M, C, lc, l2, w, kind):
     from repro_torch.kernels.clause_table import kernel as ct_kernel
     from repro_torch.kernels.clause_table.ref import clause_table_plain
 
-    args = _clause_table_case(dev, M, C, lc, l2, w, seed=M * C + lc)
+    args = _clause_table_case(dev, M, C, lc, l2, w, seed=M * C + lc, kind=kind)
     before = ct_kernel.launches
     got = ct_kernel.clause_table(*args)
     torch.cuda.synchronize()
