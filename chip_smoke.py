@@ -110,6 +110,22 @@ features, ~17k includes, 8192 datapoints per flush) it
      engine on a (2, 2) mesh over three chained steps at B = 128 equal to
      the packed engine, and a recal loop with ``RecalWorker(mesh=)``
      publishing the packed loop's ``TMProgram`` bytes;
+  3g. the LM trunk (``lm_phase``; no kernel of its own: cuBLAS products
+     and the reference's two attention paths in plain PyTorch): the
+     stablelm-3b, starcoder2-7b, moonshot-v1-16b-a3b and internvl2-26b
+     smoke archs' ``loss``, ``prefill`` and a decode step on the card
+     against the CPU from the same fp32 parameters (1e-3), one bf16 train
+     step each; 60 steps of stablelm-3b-smoke at lr 3e-3 lowering the loss
+     by more than 0.9 nats; stablelm-3b at full width and depth in bf16:
+     ``Server(batch=4, prompt_cap=4000, gen_cap=96)`` generating 96 tokens
+     (prefill on the streaming path, decode on the plain path with
+     ``kv_len``; prefill and decode timed, peak memory), three
+     ``make_train_step`` steps at B = 4, S = 4096 with 4 microbatches (ms,
+     tokens/s, model-FLOPs share, peak memory) and one profiled; the
+     streaming attention held to the plain one at one layer's width in
+     fp32 and both timed in bf16 beside
+     ``scaled_dot_product_attention`` (a library column only); the
+     ``repro_torch.launch.serve`` CLI;
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
@@ -1682,6 +1698,314 @@ def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
             max_err, (k_ms, p_ms, bound_ms, bound_by, lib))
 
 
+# ---------------------------------------------------------------------------
+# phase 3g: the LM trunk (no kernel of its own: cuBLAS products, the
+# reference's two attention paths in plain PyTorch)
+# ---------------------------------------------------------------------------
+
+SMOKE_ARCHS = ("stablelm-3b-smoke", "starcoder2-7b-smoke",
+               "moonshot-v1-16b-a3b-smoke", "internvl2-26b-smoke")
+LM_TOL = 1e-3  # card vs CPU in fp32, TF32 off (PyTorch's default)
+ATTN_TOL, ATTN_GRAD_TOL = 1e-4, 5e-4  # streaming vs plain on the card, fp32
+PEAK_BF16_FLOPS = 989.4e12  # H100 SXM dense bf16, NVIDIA's datasheet
+
+
+def card_identity() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def events_ms(fn):
+    """(fn's result, its time in ms by CUDA events, synchronised)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def profile_device(tag, fn, card, top=5):
+    """Run ``fn`` once under ``torch.profiler`` (host and device) and
+    print its wall time, the device's busy time and idle share, and its
+    ``top`` longest device operations.  Returns ``fn``'s result."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ops = device_ops(prof)
+    busy = sum(o[0] for o in ops)
+    print(f"profile {tag}: wall {wall_us:.1f} us, device busy {busy:.1f} us "
+          f"(idle share {1 - busy / wall_us:.3f}) [{card}]")
+    for us, key, count in ops[:top]:
+        print(f"profile {tag}: {us:.1f} us  x{count}  {key[:90]} [{card}]")
+    return out
+
+
+def np_lm_params(cfg, seed, std=0.3):
+    """fp32 numpy parameters of ``cfg``'s tree, normal at ``std`` (at the
+    init scale 0.02 every smoke model predicts close to uniform)."""
+    import numpy as np
+    from repro_torch.models.dense import param_specs
+    from repro_torch.tree import flatten, unflatten
+
+    rng = np.random.default_rng(seed)
+    return unflatten((p, (rng.normal(size=s.shape) * std).astype(np.float32))
+                     for p, s in flatten(param_specs(cfg)))
+
+
+def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096),
+             attn_seq=4096):
+    """Phase 3g: the LM trunk on ``dev``.  The four smoke archs against
+    the CPU from the same fp32 parameters, one bf16 train step each, the
+    loss falling over 60 steps of stablelm-3b-smoke; then
+    ``arch`` at full width and depth in bf16: ``Server`` (batch,
+    prompt_cap, gen_cap = ``serve``) generating ``gen_cap`` tokens, three
+    ``make_train_step`` steps at (batch, seq) = ``train`` with the arch's
+    microbatches, one of them profiled; the streaming attention held to
+    the plain one at one layer's width and both timed beside
+    ``scaled_dot_product_attention``; and the serving CLI.  ``card``
+    (name, power limit) goes on every line with a number."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.data.pipeline import TokenStream, TokenStreamConfig
+    from repro_torch.dist.steps import make_train_step, opt_config_for
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import api, dense
+    from repro_torch.models import common as cm
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("3g: TF32 matmuls are on; the fp32 comparisons need them off")
+
+    # -- smoke archs: the card against the CPU, then one bf16 train step --
+    for name in SMOKE_ARCHS:
+        cfg = get(name)
+        tree = np_lm_params(cfg, 0)
+        rng = np.random.default_rng(1)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)}
+        if cfg.family == "vlm":
+            batch["patches"] = rng.normal(
+                size=(2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        tok = rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32)
+        outs = {}
+        for d in (cpu, dev):
+            params = lm_params_from_numpy(cfg, tree, device=d)
+            b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+            loss = dense.loss(cfg, params, b).detach()
+            logits, cache = dense.prefill(cfg, params, b)
+            logits2, cache = dense.decode(cfg, params, cache, {
+                "token": torch.from_numpy(tok).to(d), "pos": 15})
+            outs[d.type] = [t.float().cpu() for t in (loss, logits, cache["k"], logits2)]
+        errs = [float((a - b).abs().max()) for a, b in zip(outs["cpu"], outs[dev.type])]
+        print(f"lm 3g {name}: card vs cpu fp32 (TF32 off) max abs err loss {errs[0]:.3e}, "
+              f"prefill logits {errs[1]:.3e}, cache {errs[2]:.3e}, decode logits "
+              f"{errs[3]:.3e} (tolerance {LM_TOL}) [{card}]")
+        if not all(np.isfinite(errs)) or max(errs) > LM_TOL:
+            fail(f"3g: {name} on the card differs from the CPU: {errs}")
+        params = dense.init_params(cfg, 0, device=dev)
+        before = {p: t.clone() for p, t in params.state_dict().items()}
+        opt = opt_config_for(cfg)
+        step = make_train_step(cfg, opt, device=dev)
+        params, _, m = step(params, adamw.init(opt, params), batch)
+        changed = sum(not torch.equal(before[p], t) for p, t in params.state_dict().items())
+        print(f"lm 3g {name}: bf16 train step loss {float(m['loss']):.6f}, grad_norm "
+              f"{float(m['grad_norm']):.6f}, {changed}/{len(before)} leaves changed "
+              f"[{card}]")
+        if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])) or not changed:
+            fail(f"3g: {name}'s bf16 train step: {m}, {changed} leaves changed")
+
+    # -- training converges (the reference's tiny-training test) ----------
+    cfg = get("stablelm-3b-smoke")
+    params = dense.init_params(cfg, 0, device=dev)
+    opt = adamw.AdamWConfig(lr=3e-3)
+    state = adamw.init(opt, params)
+    step = make_train_step(cfg, opt, device=dev)
+    stream = TokenStream(TokenStreamConfig(cfg.vocab, 64, 16, seed=1))
+    losses = []
+    for _ in range(60):
+        params, state, m = step(params, state, stream.next_batch())
+        losses.append(float(m["loss"]))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"lm 3g converge: stablelm-3b-smoke lr 3e-3, 60 steps of "
+          f"TokenStream(512, 64, 16, seed=1): first 5 {first:.4f}, last 5 {last:.4f} "
+          f"nats (drop {first - last:.4f}, needs > 0.9) [{card}]")
+    if not first - last > 0.9:
+        fail(f"3g: the loss fell by {first - last:.4f} nats, not > 0.9: {losses}")
+
+    # -- arch at full width and depth: serve ------------------------------
+    cfg = get(arch)
+    n_params = api.count_params(cfg)
+    B, prompt_cap, gen_cap = serve
+    torch.cuda.reset_peak_memory_stats()
+    params = dense.init_params(cfg, 0, device=dev)
+    server = Server(cfg, batch=B, prompt_cap=prompt_cap, gen_cap=gen_cap, device=dev)
+    server.load_weights(params)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, prompt_cap)).astype(
+        np.int32)
+    paths = {"streaming": 0, "plain": 0, "plain with kv_len": 0}
+    flash, plain = cm._flash_attention, cm._plain_attention
+
+    def count_flash(*a):
+        paths["streaming"] += 1
+        return flash(*a)
+
+    def count_plain(*a, **k):
+        paths["plain with kv_len" if k["kv_len"] is not None else "plain"] += 1
+        return plain(*a, **k)
+
+    cm._flash_attention, cm._plain_attention = count_flash, count_plain
+    try:
+        tokens, gen_ms = events_ms(lambda: server.generate(prompts, gen_cap))
+    finally:
+        cm._flash_attention, cm._plain_attention = flash, plain
+    print(f"lm 3g serve {arch}: {n_params} params, Server(batch={B}, "
+          f"prompt_cap={prompt_cap}, gen_cap={gen_cap}), cache_cap "
+          f"{server.cache_cap}: generate {tokens.shape} in {gen_ms:.3f} ms; "
+          f"attention calls {paths} [{card}]")
+    want = {"streaming": cfg.n_layers, "plain": 0,
+            "plain with kv_len": cfg.n_layers * (gen_cap - 1)}
+    if server.cache_cap > cm.ATTN_CHUNK_THRESHOLD and paths != want:
+        fail(f"3g: the serve took attention paths {paths}, not {want}")
+    if tokens.shape != (B, gen_cap) or tokens.min() < 0 or tokens.max() >= cfg.padded_vocab:
+        fail(f"3g: generated tokens out of range: {tokens.shape}, {tokens.min()}..{tokens.max()}")
+    padded = np.zeros((B, server.cache_cap), np.int32)
+    padded[:, :prompt_cap] = prompts
+    batch = {"tokens": torch.from_numpy(padded).to(dev)}
+    prefill_ms = []
+    for _ in range(3):
+        cache = None
+        (logits, cache), ms = events_ms(lambda: server.prefill(params, batch))
+        prefill_ms.append(ms)
+    if not torch.isfinite(logits).all():
+        fail("3g: prefill logits are not finite")
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    decode_ms = []
+    for i in range(gen_cap - 1):
+        (tok, cache), ms = events_ms(lambda: server.decode(
+            params, cache, {"token": tok, "pos": prompt_cap + i}))
+        decode_ms.append(ms)
+        tok = tok[:, None]
+    p_ms, d_ms = statistics.median(prefill_ms), statistics.median(decode_ms)
+    tok, cache = profile_device("3g decode step", lambda: server.decode(
+        params, cache, {"token": tok, "pos": prompt_cap + gen_cap - 2}), card)
+    cache = None
+    logits, cache = profile_device(
+        "3g prefill", lambda: server.prefill(params, batch), card)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"lm 3g serve {arch}: prefill {p_ms:.3f} ms (median of 3: {prefill_ms}) for "
+          f"{B} x {server.cache_cap} positions, {B * server.cache_cap / p_ms * 1e3:.1f} "
+          f"tok/s; decode {d_ms:.3f} ms per step (median of {len(decode_ms)}), "
+          f"{B / d_ms * 1e3:.1f} tok/s; peak memory {peak:.3f} GiB [{card}]")
+    del server, cache, logits, batch
+
+    # -- arch at full width and depth: train ------------------------------
+    Bt, St = train
+    mb = cfg.train_microbatches
+    torch.cuda.reset_peak_memory_stats()
+    opt = opt_config_for(cfg)
+    state = adamw.init(opt, params)
+    step = make_train_step(cfg, opt, microbatches=mb, device=dev)
+    stream = TokenStream(TokenStreamConfig(cfg.vocab, St, Bt, seed=0))
+    step_ms = []
+    for _ in range(3):
+        batch = stream.next_batch()
+        (params, state, m), ms = events_ms(lambda: step(params, state, batch))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        step_ms.append(ms)
+        print(f"lm 3g train {arch}: step {int(state.step)} loss {loss:.6f} grad_norm "
+              f"{gnorm:.6f} in {ms:.3f} ms [{card}]")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fail(f"3g: full-width train step not finite: {loss}, {gnorm}")
+    s_ms = statistics.median(step_ms)
+    tok_s = Bt * St / s_ms * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"lm 3g train {arch}: B={Bt} S={St} microbatches={mb}, {s_ms:.3f} ms per "
+          f"step (median of 3), {tok_s:.1f} tok/s; peak memory {peak:.3f} GiB [{card}]")
+    print(f"lm 3g train {arch}: model-FLOPs share 6 x {n_params} x {tok_s:.1f} tok/s "
+          f"/ 989.4e12 = {6 * n_params * tok_s / PEAK_BF16_FLOPS:.4f} (989.4 TFLOP/s: "
+          f"H100 SXM dense bf16, NVIDIA's datasheet) [{card}]")
+    batch = stream.next_batch()
+    params, state, m = profile_device(
+        "3g train step", lambda: step(params, state, batch), card)
+    del params, state, step, m
+
+    # -- attention at one layer's full width ------------------------------
+    H, hd = cfg.n_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, attn_seq, H, hd), generator=g, device=dev)
+               for _ in range(3))
+    out_f = cm._flash_attention(q, k, v, True, 0, 0)
+    out_p = cm._plain_attention(q, k, v, causal=True, q_offset=0, window=0, kv_len=None)
+    fwd_err = float((out_f - out_p).abs().max())
+    grads = []
+    for fn in (lambda *a: cm._flash_attention(*a, True, 0, 0),
+               lambda *a: cm._plain_attention(*a, causal=True, q_offset=0, window=0,
+                                              kv_len=None)):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        grads.append(torch.autograd.grad(torch.sum(torch.sin(fn(*args))), args))
+    grad_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(*grads))
+    print(f"lm 3g attention B=1 S={attn_seq} H={H} hd={hd} fp32: streaming vs plain "
+          f"forward max abs err {fwd_err:.3e} (tolerance {ATTN_TOL}), backward "
+          f"{grad_err:.3e} of the largest gradient (tolerance {ATTN_GRAD_TOL}) "
+          f"[{card}]")
+    if not fwd_err <= ATTN_TOL or not grad_err <= ATTN_GRAD_TOL:
+        fail(f"3g: streaming attention differs from plain: {fwd_err}, {grad_err}")
+    del grads, out_f, out_p
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    with torch.no_grad():
+        times = {
+            "streaming": median_ms(lambda: cm._flash_attention(qb, kb, vb, True, 0, 0)),
+            "plain": median_ms(lambda: cm._plain_attention(
+                qb, kb, vb, causal=True, q_offset=0, window=0, kv_len=None)),
+            "sdpa (library)": median_ms(lambda: F.scaled_dot_product_attention(
+                qb.transpose(1, 2), kb.transpose(1, 2), vb.transpose(1, 2),
+                is_causal=True)),
+        }
+    # causal attention: QK^T and PV over the lower triangle; q, k, v read
+    # and the output written once, bf16
+    n_ops = 2 * 2 * attn_seq * attn_seq * H * hd // 2
+    bound_ms, bound_by = bound(4 * attn_seq * H * hd * 2, n_ops, PEAK_BF16_FLOPS)
+    print(f"time 3g attention bf16 B=1 S={attn_seq} H={H} hd={hd} causal (median of "
+          f"{REPS}): " + ", ".join(f"{k} {t:.6f} ms" for k, t in times.items())
+          + f"; bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+
+    # -- the serving CLI ----------------------------------------------------
+    import os
+
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "stablelm-3b-smoke", "--batch", "2", "--prompt-len", "16", "--gen", "4",
+         *(["--device", "cpu"] if dev.type == "cpu" else [])],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    print(f"lm 3g cli: rc {cli.returncode}: {cli.stdout.strip().splitlines()[:1]}")
+    if cli.returncode != 0 or "generated (2, 4)" not in cli.stdout:
+        fail(f"3g: the serving CLI failed: {cli.stdout} {cli.stderr}")
+    torch.cuda.empty_cache()
+    print(f"lm 3g: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2172,6 +2496,9 @@ def main() -> int:
     # -- 3f. multi-device: clause_table, build_tm_sharded, the engines ---
     sharded_row = sharded_phase(dev, cfg, served, models, X, oracles)
 
+    # -- 3g. the LM trunk: smoke archs, stablelm-3b at full width ----------
+    lm_phase(dev, card_identity())
+
     # -- 4. timings --------------------------------------------------------
     def kernel_bound(ops, packed):
         """(bound ms, what bounds it, bytes, operations) on these inputs,
@@ -2275,13 +2602,7 @@ def main() -> int:
         "bound_by": t[3],
         "library_ms": t[4],
     } for name, body, n, err, t in rows]}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

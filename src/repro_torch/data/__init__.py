@@ -1,3 +1,4 @@
-"""Deterministic synthetic data of the port: the TM edge datasets
-(``pipeline.py``).  The token-LM half of the reference's pipeline
-(``TokenStream``, ``shard_batch``) is not ported yet."""
+"""Deterministic synthetic data of the port (``pipeline.py``): the
+token-LM stream and the TM edge datasets.  The reference's ``shard_batch``
+(placement on a mesh) is not ported yet; ``batch_to_device`` places a
+batch on one device."""

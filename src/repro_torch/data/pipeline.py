@@ -1,6 +1,9 @@
-"""TM edge datasets (paper Table 2 dimensionalities), the TM half of
-``repro.data.pipeline``: numpy, synthetic, nothing is downloaded, and the
-same arrays as the reference for the same arguments.
+"""Data pipeline of the port: deterministic synthetic streams (token LM +
+TM datasets), numpy, nothing is downloaded, and the same arrays as
+``repro.data.pipeline`` for the same arguments.
+
+Token streams are Zipf-distributed with Markov bigram structure (so
+training loss measurably decreases).
 
 Feature/class counts follow the public UCI datasets the paper evaluates
 (EMG [10], Human Activity [19], Gesture Phase [14], Sensorless Drives [4],
@@ -13,9 +16,58 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+@dataclasses.dataclass
+class TokenStreamConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    zipf_a: float = 1.2
+
+
+class TokenStream:
+    """Deterministic, restartable synthetic LM token stream.
+
+    ``state()``/``restore()`` give exact-resume semantics so checkpoint
+    restarts do not replay or skip batches."""
+
+    def __init__(self, cfg: TokenStreamConfig, start_step: int = 0):
+        self.cfg = cfg
+        self._step = start_step
+
+    def state(self) -> int:
+        return self._step
+
+    def restore(self, state: int) -> None:
+        self._step = state
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        rng = np.random.default_rng((cfg.seed << 20) ^ self._step)
+        self._step += 1
+        # zipf body + bigram structure: next token correlated with previous
+        base = rng.zipf(cfg.zipf_a, size=(cfg.global_batch, cfg.seq_len))
+        base = np.minimum(base - 1, cfg.vocab - 1).astype(np.int32)
+        shift = np.roll(base, 1, axis=1)
+        mix = rng.random((cfg.global_batch, cfg.seq_len)) < 0.3
+        tokens = np.where(mix, (shift * 7 + 13) % cfg.vocab, base)
+        return {"tokens": tokens.astype(np.int32)}
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
+    """A numpy batch -> the same arrays as tensors on ``device`` (the CUDA
+    card unless ``device="cpu"``), the one-device form of the reference's
+    ``shard_batch``."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,12 @@
-"""The class-sharded Tsetlin Machine train step, the port of
-``repro.dist.steps.make_tm_train_step`` (the Fig-8 training node scaled
-out over a mesh of the port).
+"""Step builders, the port of ``repro.dist.steps``: the LM train,
+prefill and decode steps on one device, and the class-sharded Tsetlin
+Machine train step (the Fig-8 training node scaled out over a mesh of the
+port).
+
+``make_train_step`` supports gradient-accumulation microbatching (the
+activation-memory knob recorded per arch as ``train_microbatches``): the
+global batch is split on its leading dim, grads are accumulated in fp32,
+then one AdamW update is applied.
 
 TA state shards its class dim over ``model``; the batch shards over the
 non-``model`` axes (``sharding.batch_axes``).  Tile (batch shard ``b``,
@@ -11,26 +17,115 @@ deltas of one class slice are summed across its batch tiles on the
 slice's home device (the reference's ``psum``) and one clipped update is
 applied.  Integer deltas commute, so the result equals
 ``core.train.train_batch_parallel`` bit for bit on any mesh.
-
-The LM step functions of the reference (``make_train_step``,
-``make_prefill_step``, ``make_decode_step``) belong to the LM scaffolding
-and are not here.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.tm import TMConfig
 from ..core.train import class_slice_delta, sample_keys
+from ..device import resolve_device
+from ..models.api import family_for
+from ..optim import adamw
+from ..tree import as_tree, flatten, unflatten
 from .sharding import _axis_sizes, batch_shards
 from .tm_sharded import _on
 
 
+def opt_config_for(cfg) -> adamw.AdamWConfig:
+    """Per-arch optimizer config (moment dtype follows the memory budget)."""
+    moment_dtype = (
+        torch.bfloat16 if getattr(cfg, "moment_dtype", "float32") == "bfloat16"
+        else torch.float32
+    )
+    return adamw.AdamWConfig(moment_dtype=moment_dtype)
+
+
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, microbatches: int = 1,
+                    device=None) -> Callable:
+    """-> step(params, opt_state, batch) -> (params, opt_state, metrics)
+    with metrics = {"loss", "grad_norm"} (fp32 scalars on the device).
+
+    The step runs on ``device`` (the CUDA card unless ``device="cpu"``):
+    numpy batches are moved there; ``params`` (a ``DenseLM`` or its tree)
+    and ``opt_state`` must live there.  Params and moments are updated in
+    place and returned (``adamw.apply``)."""
+    fam = family_for(cfg)
+    dev = resolve_device(device)
+
+    def value_and_grad(tree, batch):
+        pairs = flatten(tree)
+        xs = [p.detach().requires_grad_() for _, p in pairs]
+        loss = fam.loss(cfg, unflatten(zip((k for k, _ in pairs), xs)), batch)
+        grads = torch.autograd.grad(loss, xs)
+        return loss.detach(), unflatten(zip((k for k, _ in pairs), grads))
+
+    def step(params, opt_state, batch):
+        batch = {k: _as_tensor(v, None).to(dev) for k, v in batch.items()}
+        tree = as_tree(params)
+        if microbatches > 1:
+            B = next(iter(batch.values())).shape[0]
+            if B % microbatches:
+                raise ValueError(
+                    f"global batch {B} not divisible by "
+                    f"train_microbatches={microbatches}"
+                )
+            loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+            g_sum = None
+            for i in range(microbatches):
+                b = {k: v.reshape(microbatches, B // microbatches, *v.shape[1:])[i]
+                     for k, v in batch.items()}
+                loss, g = value_and_grad(tree, b)
+                if g_sum is None:
+                    g_sum = [gg.to(torch.float32) for _, gg in flatten(g)]
+                else:
+                    for acc, (_, gg) in zip(g_sum, flatten(g)):
+                        acc.add_(gg)
+                del g
+                loss_sum = loss_sum + loss.to(torch.float32)
+            loss = loss_sum / microbatches
+            grads = unflatten(
+                (path, acc.div_(microbatches))
+                for (path, _), acc in zip(flatten(tree), g_sum)
+            )
+        else:
+            loss, grads = value_and_grad(tree, batch)
+        params, new_state, gnorm = adamw.apply(opt_cfg, params, grads, opt_state)
+        return params, new_state, {"loss": loss, "grad_norm": gnorm}
+
+    return step
+
+
+def make_prefill_step(cfg) -> Callable:
+    """-> step(params, batch) -> (last-position logits, kv cache)."""
+    fam = family_for(cfg)
+
+    def step(params, batch):
+        return fam.prefill(cfg, params, batch)
+
+    return step
+
+
+def make_decode_step(cfg) -> Callable:
+    """-> step(params, cache, batch) -> (greedy token int32[B], cache).
+
+    Greedy sampling stays on the device, so the serving loop moves one
+    int per sequence per step off the device, not the logits."""
+    fam = family_for(cfg)
+
+    def step(params, cache, batch):
+        logits, cache = fam.decode(cfg, params, cache, batch)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    return step
+
+
 def _as_tensor(x, dtype) -> torch.Tensor:
+    """A tensor, or an array-like -> a tensor (of ``dtype``, if given)."""
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, dtype))
 
 

@@ -2,8 +2,9 @@
 it imports no JAX and nothing of ``repro`` (every module, the kernel
 packages ``tm_popcount``, ``tm_interp``, ``clause_eval``,
 ``clause_matmul``, ``tm_train``, ``interp_stream`` and ``clause_table``,
-``prune``, ``data``, ``dist`` and ``core.runtime`` among them, imports
-without ``nvcc``);
+``prune``, ``data``, ``dist``, ``core.runtime`` and the LM modules
+``configs``, ``optim``, ``models`` and ``launch.serve`` among them,
+imports without ``nvcc``);
 its entry points refuse to run without a CUDA card unless
 ``device="cpu"`` is asked for; the kernel wrappers send a CUDA tensor to
 the kernel, never to the plain twin; and the deprecated executor shim
@@ -41,7 +42,12 @@ MODULES = ["repro_torch.core.runtime", "repro_torch.core.interp",
            "repro_torch.runtime_ft.supervisor", "repro_torch.checkpoint.manager",
            "repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.dist.tm_sharded",
            "repro_torch.dist.steps", "repro_torch.kernels.clause_table.kernel",
-           "repro_torch.kernels.clause_table.ref"]
+           "repro_torch.kernels.clause_table.ref", "repro_torch.tree",
+           "repro_torch.configs.base", "repro_torch.configs.registry",
+           "repro_torch.optim.adamw", "repro_torch.optim.compress",
+           "repro_torch.models.common", "repro_torch.models.moe",
+           "repro_torch.models.dense", "repro_torch.models.api",
+           "repro_torch.launch.serve", "repro_torch.convert"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -87,18 +93,27 @@ def _model():
                                    "to_device_bool", "clause_fire_counts",
                                    "vote_contribution", "prune_ranked",
                                    "PrunePolicy.apply", "make_mesh", "sharded engine",
-                                   "sharded train engine"])
+                                   "sharded train engine", "init_params", "Server",
+                                   "make_train_step", "batch_to_device",
+                                   "lm_params_from_numpy"])
 def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is the card")
     from repro_torch import prune
+    from repro_torch.configs.registry import get
+    from repro_torch.convert import lm_params_from_numpy
     from repro_torch.core import booleanize, runtime
+    from repro_torch.data.pipeline import batch_to_device
+    from repro_torch.dist import make_train_step, opt_config_for
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import dense
 
     plan = CapacityPlan.for_models([_model()])
     cfg = tm.TMConfig(3, 4, 10)
     acts = np.random.default_rng(0).random((3, 4, 20)) < 0.2
     x = np.zeros((8, 10), np.uint8)
     y = np.zeros(8, np.int32)
+    lm = get("stablelm-3b-smoke")
     calls = {
         "Accelerator": lambda: Accelerator(plan),
         "for_models": lambda: Accelerator.for_models([_model()]),
@@ -120,10 +135,20 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
         "make_mesh": lambda: make_mesh((2, 2)),
         "sharded engine": lambda: make_engine("sharded", plan),
         "sharded train engine": lambda: make_train_engine("sharded", cfg),
+        "init_params": lambda: dense.init_params(lm, 0),
+        "Server": lambda: Server(lm, batch=2, prompt_cap=8),
+        "make_train_step": lambda: make_train_step(lm, opt_config_for(lm)),
+        "batch_to_device": lambda: batch_to_device({"tokens": x}),
+        "lm_params_from_numpy": lambda: lm_params_from_numpy(lm, {}),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
     assert Accelerator(plan, device="cpu").engine.device.type == "cpu"
+    if entry in ("init_params", "Server", "make_train_step"):
+        params = dense.init_params(lm, 0, device="cpu")
+        assert params.embed.device.type == "cpu"
+        assert Server(lm, batch=2, prompt_cap=8, device="cpu").device.type == "cpu"
+        make_train_step(lm, opt_config_for(lm), device="cpu")
 
 
 def test_resolve_device_rejects_other_devices():
