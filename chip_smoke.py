@@ -126,6 +126,21 @@ features, ~17k includes, 8192 datapoints per flush) it
      fp32 and both timed in bf16 beside
      ``scaled_dot_product_attention`` (a library column only); the
      ``repro_torch.launch.serve`` CLI;
+  3h. the recurrent and encoder-decoder families (``recurrent_phase``;
+     no kernel of their own: the reference's scans as Python loops):
+     the xlstm-125m, zamba2-2.7b and whisper-medium smoke archs' loss,
+     prefill logits and every cache leaf, and three chained decode steps
+     on the card against the CPU from the same fp32 parameters (1e-3),
+     one bf16 train step each; at full width in bf16 from random
+     weights, zamba2-2.7b and xlstm-125m served by ``Server(batch=4,
+     prompt_cap=1000, gen_cap=24)`` and whisper-medium by
+     ``make_prefill_step`` on frames [4, 1500, 1024] and 4 x 448 tokens
+     (384 prompt) then 63 ``make_decode_step`` steps: prefill ms,
+     decode ms per step, tokens/s, peak memory, profiles of a decode
+     step and of the prefill (the recurrent ones at 32 and 64 positions,
+     for their launches per position); one layer of Zamba2's SSD and
+     xLSTM's mLSTM and sLSTM at full width (B = 4, S = 1,024) and 30
+     chained decode steps of each, timed beside their bounds;
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
@@ -1760,12 +1775,12 @@ def np_lm_params(cfg, seed, std=0.3):
     """fp32 numpy parameters of ``cfg``'s tree, normal at ``std`` (at the
     init scale 0.02 every smoke model predicts close to uniform)."""
     import numpy as np
-    from repro_torch.models.dense import param_specs
+    from repro_torch.models.api import abstract_params
     from repro_torch.tree import flatten, unflatten
 
     rng = np.random.default_rng(seed)
     return unflatten((p, (rng.normal(size=s.shape) * std).astype(np.float32))
-                     for p, s in flatten(param_specs(cfg)))
+                     for p, s in flatten(abstract_params(cfg)))
 
 
 def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096),
@@ -2004,6 +2019,372 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
         fail(f"3g: the serving CLI failed: {cli.stdout} {cli.stderr}")
     torch.cuda.empty_cache()
     print(f"lm 3g: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: the recurrent and encoder-decoder families (no kernel of their
+# own: the reference's scans as Python loops of plain PyTorch)
+# ---------------------------------------------------------------------------
+
+RECURRENT_SMOKE = ("xlstm-125m-smoke", "zamba2-2.7b-smoke", "whisper-medium-smoke")
+BLOCKS = ("ssm_forward", "ssm_decode_step", "mlstm_forward", "mlstm_decode_step",
+          "slstm_forward", "slstm_decode_step")  # as recurrent_lm names them
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (datasheet)
+
+
+def bound_mixed(n_bytes: int, bf16_ops: int, fp32_ops: int):
+    """(bound ms, what bounds it): bytes at 3.35 TB/s against the bf16
+    products at 989.4 TFLOP/s plus the fp32 ones at 67 TFLOP/s."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = bf16_ops / PEAK_BF16_FLOPS + fp32_ops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def raw_profile(tag, fn, card, top=5):
+    """Run ``fn`` once under ``torch.profiler`` (device activity) and print
+    its wall time, the device's busy time and idle share, its device
+    operations (launches) and the ``top`` names by device time, summed
+    straight from the profiler's events: ``key_averages()`` takes minutes
+    over the million events of a recurrent prefill.  Returns (``fn``'s
+    result, device operations)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    names = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda:
+            us, n = names.get(ev.name(), (0.0, 0))
+            names[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    busy = sum(us for us, _ in names.values())
+    n_ops = sum(n for _, n in names.values())
+    print(f"profile {tag}: wall {wall_us:.1f} us, device busy {busy:.1f} us "
+          f"(idle share {1 - busy / wall_us:.3f}), {n_ops} device operations "
+          f"[{card}]")
+    for name, (us, n) in sorted(names.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"profile {tag}: {us:.1f} us  x{n}  {name[:90]} [{card}]")
+    return out, n_ops
+
+
+def _leaves(cache):
+    if isinstance(cache, dict):
+        return [t for k in sorted(cache) for t in _leaves(cache[k])]
+    if isinstance(cache, tuple):
+        return [t for c in cache for t in _leaves(c)]
+    return [cache]
+
+
+def recurrence_work(kind, cfg, B, S):
+    """(bytes, bf16 products' FLOPs, fp32 FLOPs) one call of a block needs
+    on these shapes: the input read and the output written once (bf16),
+    the block's parameters read once; each product's multiply-adds in
+    the dtype the reference computes it in (elementwise work left out,
+    so the bound stays a lower bound).  ``S`` = 1 for a decode step,
+    whose state is read and written once more."""
+    import math as _m
+
+    from repro_torch.models import ssm, xlstm
+
+    D = cfg.d_model
+    act = 2 * B * S * D * 2  # input + output, bf16
+    if kind == "ssm":
+        d_inner, H, P, N = ssm.ssm_dims(cfg)
+        specs = ssm.ssm_param_specs(cfg)
+        E = 2 * d_inner + 2 * N + H
+        bf16 = 2 * B * S * D * E + 2 * B * S * d_inner * D
+        if S == 1:
+            fp32 = 2 * B * H * N * P * 2
+            state = B * (ssm.CONV_K - 1) * (d_inner + 2 * N) * 2 + B * H * N * P * 4
+        else:
+            Q = min(256, S)
+            bf16 += 2 * B * S * Q * N
+            fp32 = 2 * B * S * Q * H * P + 2 * (2 * B * S * H * N * P)
+            state = 0
+    else:
+        _, H, hd = xlstm.xlstm_dims(cfg)
+        if kind == "mlstm":
+            specs = xlstm.mlstm_param_specs(cfg)
+            bf16 = 5 * 2 * B * S * D * D
+            fp32 = 2 * 2 * B * S * D * H
+            if S == 1:
+                fp32 += 2 * 2 * B * H * hd * hd
+                state = B * H * (hd * hd + hd + 1) * 4
+            else:
+                Q = min(256, S)
+                fp32 += 2 * (2 * B * S * Q * H * hd) + 2 * (2 * B * S * H * hd * hd)
+                state = 0
+        else:
+            specs = xlstm.slstm_param_specs(cfg)
+            bf16 = (2 * 2 * B * D * D + 2 * 2 * B * H * hd * hd) * S + 2 * B * S * D * D
+            fp32 = (2 * 2 * B * D * D + 2 * 2 * B * H * hd * hd) * S
+            state = B * D * (3 * 4 + 2) if S == 1 else 0
+    params = sum(_m.prod(s.shape) * s.element_size() for s in specs.values())
+    return act + params + 2 * state, bf16, fp32
+
+
+def recurrent_phase(dev, card, serve=(4, 1000, 24),
+                    whisper=("whisper-medium", 4, 448, 384), layer_seq=1024,
+                    profile_seqs=(32, 64), archs=("zamba2-2.7b", "xlstm-125m")):
+    """Phase 3h: the recurrent (XLSTM, Zamba2) and encoder-decoder
+    (Whisper) families on ``dev``.  The three smoke archs against the CPU
+    from the same fp32 parameters (loss, prefill logits and every cache
+    leaf, three chained decode steps), one bf16 train step each; then at
+    full width in bf16 from random weights (seed 0): zamba2-2.7b and
+    xlstm-125m served by ``Server`` (batch, prompt_cap, gen_cap =
+    ``serve``), whisper-medium by ``make_prefill_step`` on frames and
+    (batch, decoder length, prompt) = ``whisper`` tokens then greedy
+    ``make_decode_step`` steps, each with prefill and per-step decode ms,
+    tokens/s, peak memory and profiles (the recurrent prefills profiled
+    at ``profile_seqs`` positions: their launches grow by a decode step
+    per position and layer); last one layer of each recurrence at the
+    width of ``archs`` (Zamba2's SSD, xLSTM's mLSTM and sLSTM; B = 4,
+    S = ``layer_seq``) and 30 chained decode steps, timed beside their
+    bounds.  ``card`` goes on every line with a number."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.dist.steps import (
+        make_decode_step,
+        make_prefill_step,
+        make_train_step,
+        opt_config_for,
+    )
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import api, recurrent_lm, ssm, xlstm
+    from repro_torch.models.common import init_from_specs
+    from repro_torch.optim import adamw
+    from repro_torch.tree import as_tree
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("3h: TF32 matmuls are on; the fp32 comparisons need them off")
+
+    # -- smoke archs: the card against the CPU, then one bf16 train step --
+    for name in RECURRENT_SMOKE:
+        cfg = get(name)
+        fam = api.family_for(cfg)
+        tree = np_lm_params(cfg, 0)
+        rng = np.random.default_rng(1)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32)}
+        if cfg.family == "encdec":
+            batch["frames"] = rng.normal(
+                size=(2, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+        toks = rng.integers(0, cfg.vocab, (3, 2, 1)).astype(np.int32)
+        # Whisper decodes into its cache's last slots, the recurrent
+        # families past the prompt
+        positions = [61, 62, 63] if cfg.family == "encdec" else [64, 65, 66]
+        outs = {}
+        for d in (cpu, dev):
+            params = lm_params_from_numpy(cfg, tree, device=d)
+            b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+            loss = fam.loss(cfg, params, b).detach()
+            logits, cache = fam.prefill(cfg, params, b)
+            res = [loss, logits, *_leaves(cache)]
+            for tok, pos in zip(toks, positions):
+                logits, cache = fam.decode(cfg, params, cache, {
+                    "token": torch.from_numpy(tok).to(d), "pos": pos})
+                res.append(logits)
+            outs[d.type] = [t.float().cpu() for t in res]
+        errs = [float((a - b).abs().max()) for a, b in zip(outs["cpu"], outs[dev.type])]
+        print(f"lm 3h {name}: card vs cpu fp32 (TF32 off) max abs err loss {errs[0]:.3e}, "
+              f"prefill logits {errs[1]:.3e}, {len(errs) - 5} cache leaves "
+              f"{max(errs[2:-3]):.3e}, 3 chained decode logits {max(errs[-3:]):.3e} "
+              f"(tolerance {LM_TOL}) [{card}]")
+        if not all(np.isfinite(errs)) or max(errs) > LM_TOL:
+            fail(f"3h: {name} on the card differs from the CPU: {errs}")
+        params = fam.init_params(cfg, 0, device=dev)
+        before = {p: t.clone() for p, t in params.state_dict().items()}
+        opt = opt_config_for(cfg)
+        step = make_train_step(cfg, opt, device=dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        if "frames" in b:
+            b["frames"] = b["frames"].to(torch.bfloat16)
+        params, _, m = step(params, adamw.init(opt, params), b)
+        changed = sum(not torch.equal(before[p], t) for p, t in params.state_dict().items())
+        print(f"lm 3h {name}: bf16 train step loss {float(m['loss']):.6f}, grad_norm "
+              f"{float(m['grad_norm']):.6f}, {changed}/{len(before)} leaves changed "
+              f"[{card}]")
+        if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])) or not changed:
+            fail(f"3h: {name}'s bf16 train step: {m}, {changed} leaves changed")
+    del params, step
+
+    # -- zamba2-2.7b and xlstm-125m at full width: serve --------------------
+    B, prompt_cap, gen_cap = serve
+    for arch in archs:
+        cfg = get(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = api.family_for(cfg).init_params(cfg, 0, device=dev)
+        server = Server(cfg, batch=B, prompt_cap=prompt_cap, gen_cap=gen_cap, device=dev)
+        server.load_weights(params)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab, (B, prompt_cap)).astype(np.int32)
+        times, last = {"prefill": [], "decode": []}, {}
+        steps = {"prefill": server.prefill, "decode": server.decode}
+
+        def timed(kind):
+            def call(*args):
+                out, ms = events_ms(lambda: steps[kind](*args))
+                times[kind].append(ms)
+                last["cache"] = out[1]
+                return out
+            return call
+
+        server.prefill, server.decode = timed("prefill"), timed("decode")
+        calls = {name: 0 for name in BLOCKS}
+        plain = {name: getattr(recurrent_lm, name) for name in BLOCKS}
+
+        def counted(name):
+            def call(*args, **kwargs):
+                calls[name] += 1
+                return plain[name](*args, **kwargs)
+            return call
+
+        for name in BLOCKS:
+            setattr(recurrent_lm, name, counted(name))
+        try:
+            tokens, gen_ms = events_ms(lambda: server.generate(prompts, gen_cap))
+        finally:
+            server.prefill, server.decode = steps["prefill"], steps["decode"]
+            for name in BLOCKS:
+                setattr(recurrent_lm, name, plain[name])
+        # the reference's structure: a step scan over every position and
+        # layer in prefill, one step per layer per decode
+        per_layer = server.cache_cap + gen_cap - 1
+        if cfg.family == "hybrid":
+            n = cfg.n_layers
+            want = {"ssm_forward": n, "ssm_decode_step": n * per_layer}
+        else:
+            n = cfg.n_layers // 2
+            want = {"mlstm_decode_step": n * per_layer, "slstm_decode_step": n * per_layer}
+        print(f"lm 3h serve {arch}: block calls in generate "
+              f"{ {k: v for k, v in calls.items() if v} } [{card}]")
+        if {k: v for k, v in calls.items() if v} != want:
+            fail(f"3h: {arch}'s generate made block calls {calls}, not {want}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if tokens.shape != (B, gen_cap) or tokens.min() < 0 or tokens.max() >= cfg.padded_vocab:
+            fail(f"3h: {arch} generated tokens out of range: {tokens.shape}")
+        p_ms, d_ms = times["prefill"][0], statistics.median(times["decode"])
+        print(f"lm 3h serve {arch}: {api.count_params(cfg)} params, Server(batch={B}, "
+              f"prompt_cap={prompt_cap}, gen_cap={gen_cap}), cache_cap {server.cache_cap}: "
+              f"generate {tokens.shape} in {gen_ms:.3f} ms; prefill {p_ms:.3f} ms "
+              f"({B * server.cache_cap / p_ms * 1e3:.1f} positions/s); decode "
+              f"{d_ms:.3f} ms per step (median of {len(times['decode'])}), "
+              f"{B / d_ms * 1e3:.1f} tok/s; peak memory {peak:.3f} GiB [{card}]")
+        raw_profile(f"3h decode step {arch}", lambda: server.decode(
+            params, last["cache"], {"token": torch.from_numpy(tokens[:, -1:]).to(dev),
+                                    "pos": prompt_cap + gen_cap - 1}), card)
+        launches = []
+        for S in profile_seqs:
+            batch = {"tokens": torch.from_numpy(prompts[:, :S].copy()).to(dev)}
+            _, n = raw_profile(f"3h prefill {arch} B={B} S={S}",
+                               lambda: server.prefill(params, batch), card)
+            launches.append(n)
+        (s0, s1), (n0, n1) = profile_seqs, launches
+        per_pos = (n1 - n0) / (s1 - s0)
+        print(f"lm 3h launches {arch}: prefill {n0} at S={s0}, {n1} at S={s1}: "
+              f"{per_pos:.1f} per position, so ~{n1 + per_pos * (server.cache_cap - s1):.0f} "
+              f"at S={server.cache_cap} [{card}]")
+        del server, params, last, times
+    # -- whisper-medium at full width: the step builders ------------------
+    w_arch, Bw, Sd, plen = whisper
+    cfg = get(w_arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.family_for(cfg).init_params(cfg, 0, device=dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.normal(size=(Bw, cfg.encoder_len, cfg.d_model)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    tokens = np.zeros((Bw, Sd), np.int32)
+    tokens[:, :plen] = rng.integers(0, cfg.vocab, (Bw, plen))
+    batch = {"frames": frames, "tokens": torch.from_numpy(tokens).to(dev)}
+    (logits, cache), p_ms = events_ms(lambda: prefill(params, batch))
+    if not torch.isfinite(logits).all():
+        fail(f"3h: {w_arch} prefill logits are not finite")
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    d_times, out = [], []
+    for pos in range(plen, Sd - 1):
+        (tok, cache), ms = events_ms(lambda: decode(params, cache, {"token": tok, "pos": pos}))
+        d_times.append(ms)
+        tok = tok[:, None]
+        out.append(tok)
+    gen = torch.cat(out, 1).cpu()
+    if gen.min() < 0 or gen.max() >= cfg.padded_vocab:
+        fail(f"3h: {w_arch} generated tokens out of range")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    d_ms = statistics.median(d_times)
+    print(f"lm 3h serve {w_arch}: {api.count_params(cfg)} params, frames "
+          f"{tuple(frames.shape)}, prefill of {Bw} x {Sd} tokens ({plen} prompt, right-"
+          f"padded) {p_ms:.3f} ms ({Bw * Sd / p_ms * 1e3:.1f} positions/s); {len(d_times)} "
+          f"decode steps from pos {plen}: {d_ms:.3f} ms per step (median), "
+          f"{Bw / d_ms * 1e3:.1f} tok/s; peak memory {peak:.3f} GiB [{card}]")
+    raw_profile(f"3h decode step {w_arch}", lambda: decode(
+        params, cache, {"token": tok, "pos": Sd - 1}), card)
+    cache = None
+    raw_profile(f"3h prefill {w_arch}", lambda: prefill(params, batch), card)
+    del params, cache, batch, frames
+
+    # -- one layer of each recurrence at its full width --------------------
+    torch.cuda.empty_cache()
+    Bl = 4
+    zcfg, xcfg = (get(a) for a in archs)
+    g = torch.Generator(device=dev).manual_seed(0)
+    blocks = (
+        ("ssm", zcfg, ssm.ssm_param_specs, ssm.ssm_forward, ssm.ssm_decode_step,
+         "src/repro/models/ssm.py:67"),
+        ("mlstm", xcfg, xlstm.mlstm_param_specs, xlstm.mlstm_forward,
+         xlstm.mlstm_decode_step, "src/repro/models/xlstm.py:68"),
+        ("slstm", xcfg, xlstm.slstm_param_specs, xlstm.slstm_forward,
+         xlstm.slstm_decode_step, "src/repro/models/xlstm.py:204"),
+    )
+    for kind, cfg, specs, fwd, step, ref in blocks:
+        p = as_tree(init_from_specs(cfg, specs(cfg), g, dev))
+        x = torch.randn((Bl, layer_seq, cfg.d_model), generator=g, device=dev).to(
+            torch.bfloat16)
+        with torch.no_grad():
+            y = fwd(p, x, cfg)
+            if not torch.isfinite(y).all():
+                fail(f"3h: {kind}_forward at full width is not finite")
+            f_ms = median_ms(lambda: fwd(p, x, cfg), reps=10, warmup=1)
+            if kind == "ssm":
+                d_inner, H, P, N = ssm.ssm_dims(cfg)
+                state0 = (torch.zeros((Bl, ssm.CONV_K - 1, d_inner + 2 * N),
+                                      dtype=torch.bfloat16, device=dev),
+                          torch.zeros((Bl, H, N, P), device=dev))
+            elif kind == "mlstm":
+                _, H, hd = xlstm.xlstm_dims(cfg)
+                state0 = xlstm.mlstm_state0(Bl, H, hd, dev)
+            else:
+                state0 = xlstm.slstm_state0(Bl, cfg.d_model, torch.bfloat16, dev)
+            xs = x[:, :30]
+
+            def chain():
+                st = state0
+                for t in range(30):
+                    _, st = step(p, xs[:, t:t + 1], st, cfg)
+                return st
+
+            c_ms = median_ms(chain, reps=10, warmup=1) / 30
+        nb, bf, f32 = recurrence_work(kind, cfg, Bl, layer_seq)
+        fb_ms, fb_by = bound_mixed(nb, bf, f32)
+        nb, bf, f32 = recurrence_work(kind, cfg, Bl, 1)
+        db_ms, db_by = bound_mixed(nb, bf, f32)
+        print(f"time 3h {kind}_forward ({ref}) {cfg.name} width B={Bl} S={layer_seq} "
+              f"bf16 (events, median of 10): {f_ms:.6f} ms; bound {fb_ms:.6f} ms "
+              f"({fb_by}); plain PyTorch, no library call computes it [{card}]")
+        print(f"time 3h {kind}_decode_step {cfg.name} width B={Bl} bf16, 30 chained "
+              f"(events, median of 10): {c_ms:.6f} ms per step; bound {db_ms:.6f} ms "
+              f"per step ({db_by}) [{card}]")
+    torch.cuda.empty_cache()
+    print(f"lm 3h: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
 def main() -> int:
@@ -2498,6 +2879,9 @@ def main() -> int:
 
     # -- 3g. the LM trunk: smoke archs, stablelm-3b at full width ----------
     lm_phase(dev, card_identity())
+
+    # -- 3h. the recurrent and encoder-decoder families -------------------
+    recurrent_phase(dev, card_identity())
 
     # -- 4. timings --------------------------------------------------------
     def kernel_bound(ops, packed):

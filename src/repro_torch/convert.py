@@ -23,7 +23,8 @@ from .configs.base import ArchConfig
 from .core.compress import CompressedModel
 from .core.tm import TMConfig
 from .device import resolve_device
-from .models.dense import DenseLM, param_specs
+from .models.api import abstract_params
+from .models.common import LMParams
 from .optim.adamw import AdamWState
 from .tree import as_tree, flatten, tree_map, unflatten
 
@@ -96,27 +97,27 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
-def lm_params_from_numpy(cfg: ArchConfig, tree, device=None, dtype=None) -> DenseLM:
-    """A reference parameter tree (nested dicts of numpy arrays) -> a
-    ``DenseLM`` on ``device`` (the CUDA card unless ``device="cpu"``), each
-    leaf in ``dtype`` if given, else in its own.  The paths and shapes
-    must be ``param_specs(cfg)``'s."""
+def lm_params_from_numpy(cfg: ArchConfig, tree, device=None, dtype=None) -> LMParams:
+    """A reference parameter tree (nested dicts of numpy arrays) of any
+    LM family -> an ``LMParams`` on ``device`` (the CUDA card unless
+    ``device="cpu"``), each leaf in ``dtype`` if given, else in its own.
+    The paths and shapes must be ``api.abstract_params(cfg)``'s."""
     dev = resolve_device(device)
-    want = {p: tuple(s.shape) for p, s in flatten(param_specs(cfg))}
+    want = {p: tuple(s.shape) for p, s in flatten(abstract_params(cfg))}
     got = {p: tuple(np.shape(a)) for p, a in flatten(tree)}
     if got != want:
         raise ValueError(
             f"parameter tree does not match {cfg.name}: "
             f"{sorted(set(got.items()) ^ set(want.items()))[:4]}"
         )
-    return DenseLM(cfg, unflatten(
+    return LMParams(cfg, unflatten(
         (p, _tensor(a, dev, dtype)) for p, a in flatten(tree)
     ))
 
 
 def lm_params_to_numpy(params):
-    """A ``DenseLM`` (or its tree) -> the reference's tree of numpy arrays
-    (bf16 leaves widened to float32, exactly)."""
+    """An ``LMParams`` (or its tree), of any family -> the reference's
+    tree of numpy arrays (bf16 leaves widened to float32, exactly)."""
     return tree_map(_numpy, as_tree(params))
 
 

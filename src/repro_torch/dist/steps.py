@@ -51,7 +51,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, microbatches: int = 1,
     with metrics = {"loss", "grad_norm"} (fp32 scalars on the device).
 
     The step runs on ``device`` (the CUDA card unless ``device="cpu"``):
-    numpy batches are moved there; ``params`` (a ``DenseLM`` or its tree)
+    numpy batches are moved there; ``params`` (a ``LMParams`` or its tree)
     and ``opt_state`` must live there.  Params and moments are updated in
     place and returned (``adamw.apply``)."""
     fam = family_for(cfg)

@@ -2,16 +2,16 @@
 
 Every family exposes:
   param_specs(cfg)            parameter tree on the ``meta`` device
-  init_params(cfg, generator, device=None)   real params (a ``DenseLM``)
+  init_params(cfg, generator, device=None)   real params (an ``LMParams``)
   loss(cfg, params, batch)    scalar training loss
   prefill(cfg, params, batch) (logits, cache)
   decode(cfg, params, cache, batch) (logits, cache)
   input_specs(cfg, shape)     batch tree on ``meta``
   cache_specs(cfg, shape)     cache tree on ``meta`` (decode)
 
-The ``dense``, ``moe`` and ``vlm`` families share the dense trunk.  The
-recurrent (``ssm_xlstm``, ``hybrid``) and encoder-decoder (``encdec``)
-families are not ported yet: ``family_for`` raises for them.
+The ``dense``, ``moe`` and ``vlm`` families share the dense trunk;
+``ssm_xlstm`` is ``recurrent_lm.XLSTM``, ``hybrid`` ``recurrent_lm.Zamba2``
+and ``encdec`` ``encdec.Whisper``.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ import math
 from ..configs.base import ArchConfig
 from ..tree import leaves
 from . import dense
+from .encdec import Whisper
+from .recurrent_lm import XLSTM, Zamba2
 
 
 class _DenseFamily:
@@ -37,16 +39,13 @@ _FAMILIES = {
     "dense": _DenseFamily,
     "moe": _DenseFamily,  # same trunk, MoE FFN switched by cfg.is_moe
     "vlm": _DenseFamily,  # early-fusion patches handled by cfg.family
+    "ssm_xlstm": XLSTM,
+    "hybrid": Zamba2,
+    "encdec": Whisper,
 }
 
 
 def family_for(cfg: ArchConfig):
-    if cfg.family in ("ssm_xlstm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported to "
-            f"repro_torch yet (ROADMAP queue 1 item 2: the recurrent and "
-            f"encoder-decoder families)"
-        )
     return _FAMILIES[cfg.family]
 
 

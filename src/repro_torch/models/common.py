@@ -16,12 +16,16 @@ device and are left out.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..device import resolve_device
+from ..tree import flatten, register, tree_map, unflatten
 
 NEG = -1e30  # the reference's mask value
 
@@ -30,6 +34,47 @@ def meta(shape, dtype=torch.bfloat16) -> torch.Tensor:
     """A shape and dtype without storage (the reference's
     ``ShapeDtypeStruct``)."""
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def stack_specs(specs, n: int):
+    """A spec tree -> the same tree with a leading ``[n]`` layer axis."""
+    return tree_map(lambda s: meta((n, *s.shape), s.dtype), specs)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+class LMParams(nn.Module):
+    """The parameters of one LM of any family: the tensors of ``params``
+    (a nested dict shaped like the family's ``param_specs``) become its
+    parameters without a copy, its ``state_dict()`` keys the reference's
+    tree paths joined by ``.``."""
+
+    def __init__(self, cfg: ArchConfig, params: Dict[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        register(self, params)
+
+
+Params = Union[LMParams, Dict[str, Any]]
+
+
+def init_from_specs(cfg: ArchConfig, specs, generator: Union[int, torch.Generator],
+                    device=None) -> LMParams:
+    """Random parameters (normal, std 0.02, in each leaf's dtype) shaped
+    like ``specs``, on ``device`` (the CUDA card unless ``device="cpu"``),
+    drawn leaf by leaf in path order from ``generator`` (a seed, or a
+    ``torch.Generator`` on that device)."""
+    dev = resolve_device(device)
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator(device=dev).manual_seed(int(generator))
+    leaves = [
+        (path, torch.randn(s.shape, dtype=s.dtype, device=dev,
+                           generator=generator).mul_(0.02))
+        for path, s in flatten(specs)
+    ]
+    return LMParams(cfg, unflatten(leaves))
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +363,15 @@ def _unstack(tree):
     return list(tree.unbind(0))
 
 
+def checkpointed(fn):
+    """``fn`` recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant, so one checkpoint nests inside another).  No layer
+    draws randomness: nothing is replayed in the recompute."""
+    return lambda *args: checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False
+    )
+
+
 def stack_apply(layer_fn, params_stacked, x):
     """x -> fold ``layer_fn(p_i, h)`` over the stacked layer axis."""
     h = x
@@ -326,16 +380,26 @@ def stack_apply(layer_fn, params_stacked, x):
     return h
 
 
-def _stack_into(out, i, n, aux):
+def _stack_into(out, i, n, aux, like=None):
     """Write layer ``i``'s aux leaves into stacked buffers (made at the
-    first layer)."""
+    first layer).  Where ``like`` (the input state, stacked) has a leaf
+    at the same place in the tree with the aux leaf's shape and dtype,
+    that leaf is the buffer: the aux is written into it in place (a
+    no-op when the layer already wrote it there)."""
     if isinstance(aux, tuple):
         if out is None:
             out = (None,) * len(aux)
-        return tuple(_stack_into(o, i, n, a) for o, a in zip(out, aux))
+        likes = like if isinstance(like, tuple) else ()
+        return tuple(_stack_into(o, i, n, a, likes[j] if j < len(likes) else None)
+                     for j, (o, a) in enumerate(zip(out, aux)))
     if out is None:
-        out = aux.new_empty((n, *aux.shape))
-    out[i] = aux
+        if (isinstance(like, torch.Tensor) and like.shape[1:] == aux.shape
+                and like.dtype == aux.dtype):
+            out = like
+        else:
+            out = aux.new_empty((n, *aux.shape))
+    if out[i].data_ptr() != aux.data_ptr():
+        out[i] = aux
     return out
 
 
@@ -352,14 +416,16 @@ def stack_apply_collect(layer_fn, params_stacked, x):
 
 
 def stack_apply_with_state(layer_fn, params_stacked, x, state):
-    """``layer_fn(p, h, s) -> (h, s')`` threads per-layer state (a tuple
-    of tensors stacked on axis 0); ``s'`` is written back into the
-    stacked state in place (the reference donates it)."""
-    h = x
-    states = _unstack(state)
-    for i, (p_i, s_i) in enumerate(zip(_unstack(params_stacked), states)):
+    """``layer_fn(p, h, s) -> (h, s')`` threads per-layer state (a tree
+    of tuples of tensors stacked on axis 0).  Returns ``h`` and the
+    ``s'`` of every layer stacked on axis 0 in ``s'``'s own structure,
+    as the reference does.  An ``s'`` leaf with the shape and dtype of
+    the ``s`` leaf at the same place is written into that stacked leaf
+    in place (the reference donates the state); any other is stacked
+    into a new buffer."""
+    layers = _unstack(params_stacked)
+    h, stacked = x, None
+    for i, (p_i, s_i) in enumerate(zip(layers, _unstack(state))):
         h, s_new = layer_fn(p_i, h, s_i)
-        for dst, src in zip(s_i, s_new):
-            if src.data_ptr() != dst.data_ptr():
-                dst.copy_(src)
-    return h, state
+        stacked = _stack_into(stacked, i, len(layers), s_new, like=state)
+    return h, stacked

@@ -6,12 +6,12 @@ embeddings).
 Structure per layer (pre-norm):  x += attn(RMSNorm(x)); x += ffn(RMSNorm(x))
 FFN is SwiGLU for dense configs, top-k MoE for MoE configs.  Layer
 parameters stay stacked on a leading ``[L, ...]`` axis, as in the
-reference; ``DenseLM`` holds them, its ``state_dict()`` keys the
-reference's tree paths joined by ``.``.  Training recomputes each layer in
+reference; ``common.LMParams`` holds them, its ``state_dict()`` keys
+the reference's tree paths joined by ``.``.  Training recomputes each layer in
 the backward (``torch.utils.checkpoint``).
 
 ``loss``, ``prefill`` and ``decode`` take ``(cfg, params, batch)`` as the
-reference's do, ``params`` a ``DenseLM`` or its nested dict of tensors.
+reference's do, ``params`` an ``LMParams`` or its nested dict of tensors.
 """
 
 from __future__ import annotations
@@ -20,41 +20,28 @@ from typing import Any, Dict, Union
 
 import torch
 import torch.nn.functional as F
-from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, ShapeSpec
-from ..device import resolve_device
-from ..tree import as_tree, flatten, register, tree_map, unflatten
+from ..tree import as_tree
 from .common import (
     AttnParams,
+    LMParams,
+    Params,
     attention_block,
     attn_param_specs,
     causal_lm_loss,
+    checkpointed,
     embed_lookup,
+    init_from_specs,
     lm_logits,
     meta,
     rms_norm,
     stack_apply,
     stack_apply_collect,
     stack_apply_with_state,
+    stack_specs,
 )
 from .moe import moe_ffn, moe_param_specs
-
-
-class DenseLM(nn.Module):
-    """The parameters of one LM: ``embed``, ``final_norm``, ``layers.*``
-    (stacked on the layer axis) and, for ``vlm``, ``patch_proj``.  The
-    tensors of ``params`` (a nested dict) become its parameters without a
-    copy."""
-
-    def __init__(self, cfg: ArchConfig, params: Dict[str, Any]):
-        super().__init__()
-        self.cfg = cfg
-        register(self, params)
-
-
-Params = Union[DenseLM, Dict[str, Any]]
 
 
 def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
@@ -76,7 +63,7 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
     out: Dict[str, Any] = {
         "embed": meta((cfg.padded_vocab, D)),
         "final_norm": meta((D,)),
-        "layers": tree_map(lambda s: meta((L, *s.shape), s.dtype), layer),
+        "layers": stack_specs(layer, L),
     }
     if cfg.family == "vlm":
         out["patch_proj"] = meta((D, D))  # stub ViT output -> backbone space
@@ -84,20 +71,10 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def init_params(cfg: ArchConfig, generator: Union[int, torch.Generator],
-                device=None) -> DenseLM:
-    """Random parameters (normal, std 0.02, in each leaf's dtype: bf16,
-    the MoE router fp32) on ``device`` (the CUDA card unless
-    ``device="cpu"``), drawn leaf by leaf in path order from
-    ``generator`` (a seed, or a ``torch.Generator`` on that device)."""
-    dev = resolve_device(device)
-    if not isinstance(generator, torch.Generator):
-        generator = torch.Generator(device=dev).manual_seed(int(generator))
-    leaves = [
-        (path, torch.randn(s.shape, dtype=s.dtype, device=dev,
-                           generator=generator).mul_(0.02))
-        for path, s in flatten(param_specs(cfg))
-    ]
-    return DenseLM(cfg, unflatten(leaves))
+                device=None) -> LMParams:
+    """Random parameters (``common.init_from_specs``: normal, std 0.02,
+    in each leaf's dtype: bf16, the MoE router fp32)."""
+    return init_from_specs(cfg, param_specs(cfg), generator, device)
 
 
 # ---------------------------------------------------------------------------
@@ -129,13 +106,7 @@ def _trunk(params, h, cfg: ArchConfig, positions, remat: bool):
     def layer_fn(p, hh):
         return _layer(p, hh, cfg, positions)[0]
 
-    if remat:
-        # no randomness in a layer: nothing to replay in the recompute
-        fn = lambda p, hh: checkpoint(  # noqa: E731
-            layer_fn, p, hh, use_reentrant=False, preserve_rng_state=False
-        )
-    else:
-        fn = layer_fn
+    fn = checkpointed(layer_fn) if remat else layer_fn
     h = stack_apply(fn, params["layers"], h)
     return rms_norm(h, params["final_norm"])
 

@@ -45,7 +45,7 @@ class AdamWState(NamedTuple):
 
 
 def init(cfg: AdamWConfig, params: Any) -> AdamWState:
-    """Zero moments shaped like ``params`` (a tree or a ``DenseLM``), on
+    """Zero moments shaped like ``params`` (a tree or a ``LMParams``), on
     its devices."""
     tree = as_tree(params)
     device = leaves(tree)[0].device

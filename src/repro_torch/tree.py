@@ -4,7 +4,7 @@ the reference's pytrees.
 Leaves are visited in sorted-key order, as ``jax.tree.leaves`` visits a
 dict, so sums over leaves (the AdamW global norm) add in the reference's
 order.  A path is the keys from the root joined by ``.``; it is also the
-``state_dict()`` key of the leaf in ``models.dense.DenseLM``.
+``state_dict()`` key of the leaf in ``models.common.LMParams``.
 """
 
 from __future__ import annotations

@@ -46,7 +46,9 @@ MODULES = ["repro_torch.core.runtime", "repro_torch.core.interp",
            "repro_torch.configs.base", "repro_torch.configs.registry",
            "repro_torch.optim.adamw", "repro_torch.optim.compress",
            "repro_torch.models.common", "repro_torch.models.moe",
-           "repro_torch.models.dense", "repro_torch.models.api",
+           "repro_torch.models.dense", "repro_torch.models.ssm",
+           "repro_torch.models.xlstm", "repro_torch.models.recurrent_lm",
+           "repro_torch.models.encdec", "repro_torch.models.api",
            "repro_torch.launch.serve", "repro_torch.convert"]
 
 _PROBE = """
@@ -95,7 +97,8 @@ def _model():
                                    "PrunePolicy.apply", "make_mesh", "sharded engine",
                                    "sharded train engine", "init_params", "Server",
                                    "make_train_step", "batch_to_device",
-                                   "lm_params_from_numpy"])
+                                   "lm_params_from_numpy", "XLSTM.init_params",
+                                   "Zamba2.init_params", "Whisper.init_params"])
 def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is the card")
@@ -106,7 +109,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
     from repro_torch.data.pipeline import batch_to_device
     from repro_torch.dist import make_train_step, opt_config_for
     from repro_torch.launch.serve import Server
-    from repro_torch.models import dense
+    from repro_torch.models import api, dense
 
     plan = CapacityPlan.for_models([_model()])
     cfg = tm.TMConfig(3, 4, 10)
@@ -140,6 +143,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
         "make_train_step": lambda: make_train_step(lm, opt_config_for(lm)),
         "batch_to_device": lambda: batch_to_device({"tokens": x}),
         "lm_params_from_numpy": lambda: lm_params_from_numpy(lm, {}),
+        **{f"{name}.init_params": (lambda a: lambda: api.family_for(get(a)).init_params(
+            get(a), 0))(arch) for name, arch in (("XLSTM", "xlstm-125m-smoke"),
+                                                 ("Zamba2", "zamba2-2.7b-smoke"),
+                                                 ("Whisper", "whisper-medium-smoke"))},
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -25,13 +25,13 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.tree import flatten
 
 ARCHS = rreg.all_arch_names()
-PORTED = [a for a in ARCHS if rreg.get(a).family in ("dense", "moe", "vlm")]
 
 
 def test_arch_registry_is_the_references():
     assert treg.all_arch_names() == ARCHS
     assert len(ARCHS) == 10
-    assert len(PORTED) == 7
+    # every family of the registry is served by the port
+    assert {rreg.get(a).family for a in ARCHS} == set(tapi._FAMILIES)
 
 
 @pytest.mark.parametrize("name", [a + s for a in ARCHS for s in ("", "-smoke")])
@@ -52,7 +52,7 @@ def test_shapes_equal():
         tbase.shape_by_name("no-such-shape")
 
 
-@pytest.mark.parametrize("name", PORTED + [a + "-smoke" for a in PORTED])
+@pytest.mark.parametrize("name", ARCHS + [a + "-smoke" for a in ARCHS])
 def test_param_specs_and_counts_equal(name):
     r, t = rreg.get(name), treg.get(name)
     ref = {jax.tree_util.keystr(p, simple=True, separator="."): (s.shape, s.dtype.name)
@@ -67,6 +67,13 @@ def test_param_specs_and_counts_equal(name):
 
 def test_stablelm_3b_count():
     assert tapi.count_params(treg.get("stablelm-3b")) == 2_666_826_240
+
+
+@pytest.mark.parametrize("name,n", [
+    ("zamba2-2.7b", 2_340_750_240), ("xlstm-125m", 77_716_224),
+    ("whisper-medium", 757_983_232)])
+def test_recurrent_and_encdec_counts(name, n):
+    assert tapi.count_params(treg.get(name)) == n
 
 
 @pytest.mark.parametrize("name", ["stablelm-3b", "llama4-maverick-400b-a17b"])

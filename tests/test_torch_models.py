@@ -304,13 +304,15 @@ def test_init_params_dtypes_scale_and_seed():
     assert float(a.state_dict()["embed"].float().std()) == pytest.approx(0.02, rel=0.05)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b", "whisper-medium"])
-def test_unported_families_raise(arch):
-    cfg = get(arch + "-smoke")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        api.family_for(cfg)
-    with pytest.raises(NotImplementedError):
-        api.count_params(cfg)
+@pytest.mark.parametrize("arch,family", [("xlstm-125m", "XLSTM"), ("zamba2-2.7b", "Zamba2"),
+                                         ("whisper-medium", "Whisper")])
+def test_family_for_serves_the_recurrent_and_encdec_families(arch, family):
+    from repro.models import api as rapi
+
+    for name in (arch, arch + "-smoke"):
+        fam = api.family_for(get(name))
+        assert fam.__name__ == rapi.family_for(rget(name)).__name__ == family
+        assert api.count_params(get(name)) == rapi.count_params(rget(name))
 
 
 def test_input_and_cache_specs_match_reference():
