@@ -141,6 +141,23 @@ features, ~17k includes, 8192 datapoints per flush) it
      for their launches per position); one layer of Zamba2's SSD and
      xLSTM's mLSTM and sLSTM at full width (B = 4, S = 1,024) and 30
      chained decode steps of each, timed beside their bounds;
+  3i. the LM on a mesh (``mesh_phase``; no kernel of its own): one MoE
+     layer of moonshot-v1-16b-a3b at full width (D 2048, 64 experts of F
+     1408, top-6) on x [4, 1024, 2048]: ``moe_ffn_ep`` on logical meshes
+     (1, 1), (1, 2), (1, 4) and (2, 2) of the card against ``moe_ffn``
+     (on each data half for (2, 2)) in fp32 within 1e-5 of the largest
+     |y|, timed in bf16 beside ``moe_ffn`` and the layer's bound; the
+     whole moonshot-v1-16b-a3b (48 layers, bf16, random weights) served
+     by ``Server(batch=4, prompt_cap=1000, gen_cap=24)`` with no mesh and
+     on meshes (1, 1) and (1, 4) (finite logits, tokens in range, every
+     MoE layer through ``moe_ffn_ep`` on a mesh; prefill and decode
+     times, peak memory, idle shares, the meshes' logits and tokens
+     against no mesh); xlstm-125m at full width trained by
+     ``repro_torch.launch.train.main`` (``--mesh 1x1 --batch 4 --seq 256
+     --steps 4``, a checkpoint every 2 steps), rerun after step 4 is
+     deleted (``[restore] step 2``, the same losses and grad norms), the
+     step-4 state resharded onto a (2, 1) mesh (every leaf equal) and one
+     more step there giving the (1, 1) continuation's loss;
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
@@ -2387,6 +2404,301 @@ def recurrent_phase(dev, card, serve=(4, 1000, 24),
     print(f"lm 3h: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: the LM on a mesh (no kernel of its own: the expert-parallel MoE,
+# the sharding rules, launch.train with checkpoint resume and reshard)
+# ---------------------------------------------------------------------------
+
+MOE_TOL = 1e-5  # moe_ffn_ep vs moe_ffn, fp32, of the largest |y|
+
+
+def moe_layer_work(cfg, logits_by_shard, C):
+    """(bytes, kept picks, padded slots) one MoE layer needs on these
+    inputs: the experts' weights (bf16) and the router (fp32) read once,
+    the input read and the output written once (bf16); the picks that
+    survive capacity (``_route``'s ``keep`` over every expert of each data
+    shard, which is what this data needs) and the E x C slots the
+    capacity pads to, each 3 products of 2 x D x F FLOPs."""
+    from repro_torch.models import moe
+
+    D, F_, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    kept, T = 0, 0
+    for logits in logits_by_shard:
+        _, _, _, keep, _ = moe._route(logits, cfg.top_k, E, C, logits.dtype)
+        kept += int(keep.sum())
+        T += logits.shape[0]
+    n_bytes = 3 * E * D * F_ * 2 + D * E * 4 + 2 * T * D * 2
+    return n_bytes, kept, len(logits_by_shard) * E * C
+
+
+def mesh_phase(dev, card, moe_arch="moonshot-v1-16b-a3b", moe_x=(4, 1024),
+               layer_meshes=((1, 1), (1, 2), (1, 4), (2, 2)), serve=(4, 1000, 24),
+               serve_meshes=(None, (1, 1), (1, 4)), train_arch="xlstm-125m",
+               train=(4, 256, 4)):
+    """Phase 3i: the LM on a mesh on ``dev``.  One MoE layer of
+    ``moe_arch`` at full width: ``moe_ffn_ep`` on logical meshes of the
+    card against ``moe_ffn`` (on each data shard's rows), fp32, within
+    ``MOE_TOL`` of the largest |y|, then timed in bf16 beside ``moe_ffn``
+    and the layer's bound; ``moe_arch`` served whole by ``Server`` with
+    no mesh and on ``serve_meshes`` (finite logits, tokens in range, the
+    prefill logits and tokens of each mesh against no mesh, prefill and
+    decode times, peak memory, idle shares); ``train_arch`` trained by
+    ``repro_torch.launch.train.main`` (batch, seq, steps = ``train``)
+    with a checkpoint every 2 steps, resumed from step 2 after step 4 is
+    deleted (the same losses and grad norms within 1e-5 relative), the
+    step-4 state resharded onto a (2, 1) mesh (every leaf equal) and one
+    more step on each mesh (the same loss within 1e-5 relative).
+    ``card`` goes on every line with a number."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import TokenStream, TokenStreamConfig, shard_batch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.steps import opt_config_for
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import api, dense, moe
+    from repro_torch.models.common import init_from_specs
+    from repro_torch.optim import adamw
+    from repro_torch.runtime_ft.elastic import reshard_state
+    from repro_torch.tree import as_tree, flatten
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("3i: TF32 matmuls are on; the fp32 comparisons need them off")
+    shd.set_activation_mesh(None)
+
+    # -- (a) one MoE layer at full width ----------------------------------
+    cfg = get(moe_arch)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(0)
+    p16 = init_from_specs(cfg, moe.moe_param_specs(cfg), g, dev)
+    p16 = {k: v.detach() for k, v in as_tree(p16).items()}
+    p32 = {k: v.float() for k, v in p16.items()}
+    B, S = moe_x
+    x32 = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    x16 = x32.to(torch.bfloat16)
+
+    def per_shard(p, x, n_data):
+        rows = x.shape[0] // n_data
+        return torch.cat([moe.moe_ffn(p, x[i * rows:(i + 1) * rows], cfg)
+                          for i in range(n_data)])
+
+    with torch.no_grad():
+        plain16_ms = median_ms(lambda: moe.moe_ffn(p16, x16, cfg), reps=10, warmup=2)
+        for shape in layer_meshes:
+            mesh = shd.make_mesh(shape, devices=dev)
+            n_data = len(shd.batch_shards(mesh, B))
+            want = per_shard(p32, x32, n_data)
+            got = moe.moe_ffn_ep(p32, x32, cfg, mesh)
+            ymax = float(want.abs().max())
+            err = float((got - want).abs().max())
+            err16 = float((moe.moe_ffn_ep(p16, x16, cfg, mesh).float()
+                           - per_shard(p16, x16, n_data).float()).abs().max())
+            ep_ms = median_ms(lambda: moe.moe_ffn_ep(p16, x16, cfg, mesh), reps=10,
+                              warmup=2)
+            ref_ms = (plain16_ms if n_data == 1 else median_ms(
+                lambda: per_shard(p16, x16, n_data), reps=10, warmup=2))
+            C = moe.moe_capacity(cfg, B * S // n_data)
+            rows = B // n_data
+            logits = [torch.einsum("td,de->te", x16[i * rows:(i + 1) * rows].reshape(
+                -1, cfg.d_model).float(), p16["router"]) for i in range(n_data)]
+            n_bytes, kept, slots = moe_layer_work(cfg, logits, C)
+            flops = 6 * cfg.d_model * cfg.d_ff
+            bound_ms, bound_by = bound(n_bytes, kept * flops, PEAK_BF16_FLOPS)
+            pad_ms, _ = bound(n_bytes, slots * flops, PEAK_BF16_FLOPS)
+            print(f"lm 3i moe_ffn_ep {moe_arch} layer x[{B}, {S}, {cfg.d_model}] "
+                  f"E={cfg.n_experts} k={cfg.top_k} F={cfg.d_ff} on mesh {shape} "
+                  f"(capacity {C} per expert and shard): fp32 max abs err {err:.3e} "
+                  f"of max |y| {ymax:.3e} (tolerance {MOE_TOL} x max |y|); bf16 "
+                  f"{err16:.3e}; time bf16 (events, median of 10) {ep_ms:.6f} ms, "
+                  f"moe_ffn{' per data shard' if n_data > 1 else ''} {ref_ms:.6f} ms; "
+                  f"bound {bound_ms:.6f} ms ({bound_by}: {n_bytes} B, {kept} kept picks "
+                  f"x {flops} FLOP), {pad_ms:.6f} ms over the {slots} padded slots "
+                  f"[{card}]")
+            if not np.isfinite(err) or err > MOE_TOL * ymax:
+                fail(f"3i: moe_ffn_ep on {shape} differs from moe_ffn: {err} of {ymax}")
+    del p16, p32, x16, x32, want, got, logits
+
+    # -- (b) the MoE arch served whole at full width ----------------------
+    Bs, prompt_cap, gen_cap = serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = dense.init_params(cfg, 0, device=dev)
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (Bs, prompt_cap)).astype(
+        np.int32)
+    runs = {}
+    for shape in serve_meshes:
+        shd.set_activation_mesh(None)
+        mesh = None if shape is None else shd.make_mesh(shape, devices=dev)
+        torch.cuda.reset_peak_memory_stats()
+        server = Server(cfg, mesh, batch=Bs, prompt_cap=prompt_cap, gen_cap=gen_cap,
+                        device=dev)
+        server.load_weights(params)
+        calls = [0]
+        real_ep = moe.moe_ffn_ep
+
+        def counted(*a):
+            calls[0] += 1
+            return real_ep(*a)
+
+        times = {"prefill": [], "decode": []}
+        steps = {"prefill": server.prefill, "decode": server.decode}
+
+        def timed(kind):
+            def call(*args):
+                out, ms = events_ms(lambda: steps[kind](*args))
+                times[kind].append(ms)
+                return out
+            return call
+
+        server.prefill, server.decode = timed("prefill"), timed("decode")
+        moe.moe_ffn_ep = counted
+        try:
+            tokens, gen_ms = events_ms(lambda: server.generate(prompts, gen_cap))
+        finally:
+            moe.moe_ffn_ep = real_ep
+            server.prefill, server.decode = steps["prefill"], steps["decode"]
+        want_calls = 0 if mesh is None else cfg.n_layers * gen_cap
+        if calls[0] != want_calls:
+            fail(f"3i: the {shape} server took moe_ffn_ep {calls[0]} times, not "
+                 f"{want_calls}")
+        if (tokens.shape != (Bs, gen_cap) or tokens.min() < 0
+                or tokens.max() >= cfg.vocab):
+            fail(f"3i: {shape} generated tokens out of range: {tokens.shape}, "
+                 f"{tokens.min()}..{tokens.max()}")
+        padded = np.zeros((Bs, server.cache_cap), np.int32)
+        padded[:, :prompt_cap] = prompts
+        batch = {"tokens": torch.from_numpy(padded).to(dev)}
+        logits, cache = server.prefill(params, batch)
+        if not torch.isfinite(logits).all():
+            fail(f"3i: the {shape} prefill logits are not finite")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        p_ms, d_ms = times["prefill"][0], statistics.median(times["decode"])
+        print(f"lm 3i serve {moe_arch} mesh {shape}: {api.count_params(cfg)} params "
+              f"({weights_gib:.3f} GiB of bf16 weights), Server(batch={Bs}, "
+              f"prompt_cap={prompt_cap}, gen_cap={gen_cap}), cache_cap "
+              f"{server.cache_cap}: generate {tokens.shape} in {gen_ms:.3f} ms; "
+              f"moe_ffn_ep calls {calls[0]}; prefill {p_ms:.3f} ms "
+              f"({Bs * server.cache_cap / p_ms * 1e3:.1f} positions/s); decode "
+              f"{d_ms:.3f} ms per step (median of {len(times['decode'])}), "
+              f"{Bs / d_ms * 1e3:.1f} tok/s; peak memory {peak:.3f} GiB [{card}]")
+        tok = torch.from_numpy(tokens[:, -1:]).to(dev)
+        raw_profile(f"3i decode step {shape}", lambda: server.decode(
+            params, cache, {"token": tok, "pos": prompt_cap + gen_cap - 1}), card)
+        del cache
+        raw_profile(f"3i prefill {shape}", lambda: server.prefill(params, batch), card)
+        runs[shape] = (logits.float(), tokens)
+        del server, batch
+    base_logits, base_tokens = runs[None]
+    for shape in serve_meshes[1:]:
+        lg, tk = runs[shape]
+        print(f"lm 3i serve {moe_arch} mesh {shape} vs no mesh (bf16, depth "
+              f"{cfg.n_layers}, not gated): prefill logits max abs err "
+              f"{float((lg - base_logits).abs().max()):.4e} of max |logits| "
+              f"{float(base_logits.abs().max()):.4e}; generated tokens agree "
+              f"{float(np.mean(tk == base_tokens)):.4f} [{card}]")
+    shd.set_activation_mesh(None)
+    del params, runs, base_logits
+    torch.cuda.empty_cache()
+
+    # -- (c) train_arch through launch.train.main, resume, reshard ---------
+    cfg = get(train_arch)
+    Bt, St, n_steps = train
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_3i_"))
+    args = ["--arch", train_arch, "--mesh", "1x1", "--batch", str(Bt), "--seq", str(St),
+            "--steps", str(n_steps), "--ckpt", str(tmp), "--save-every", "2",
+            "--log-every", "1", *(["--device", "cpu"] if dev.type == "cpu" else [])]
+
+    def run_main():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rec = launch_train.main(args)
+        lines = out.getvalue().strip().splitlines()
+        for line in lines:
+            print(f"lm 3i train cli: {line} [{card}]")
+        return rec, lines
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        first, lines = run_main()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if lines[-1] != "done" or sorted(first["metrics"]) != list(range(1, n_steps + 1)):
+            fail(f"3i: launch.train.main did not run {n_steps} steps: {lines}")
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / f"step_{n_steps}").iterdir())
+        shutil.rmtree(tmp / f"step_{n_steps}")
+        second, lines = run_main()
+        if lines[0] != "[restore] step 2" or lines[-1] != "done":
+            fail(f"3i: the rerun did not resume from step 2: {lines}")
+        worst = 0.0
+        for s_ in range(3, n_steps + 1):
+            for a, b in zip(second["metrics"][s_], first["metrics"][s_]):
+                worst = max(worst, abs(a - b) / abs(b))
+        if not worst <= 1e-5:
+            fail(f"3i: the resumed steps differ: {second['metrics']} vs {first['metrics']}")
+        step_s = statistics.median(first["step_s"][s_] for s_ in range(2, n_steps + 1))
+        tok_s = Bt * St / step_s
+        n_params = api.count_params(cfg)
+        print(f"lm 3i train {train_arch}: B={Bt} S={St} mesh 1x1, {n_params} params: "
+              f"{step_s:.4f} s per step (host clock to the loss read, median of steps "
+              f"2..{n_steps}), {tok_s:.1f} tok/s, model-FLOPs share 6 x {n_params} x "
+              f"{tok_s:.1f} / 989.4e12 = {6 * n_params * tok_s / PEAK_BF16_FLOPS:.6f}; "
+              f"peak memory {peak:.3f} GiB; checkpoint step_{n_steps} {ckpt_bytes} B, "
+              f"save {first['save_s']} s, restore {second['restore_s']:.4f} s; resumed "
+              f"steps 3..{n_steps} max rel diff of loss and grad norm {worst:.3e} "
+              f"(tolerance 1e-5) [{card}]")
+
+        like = {"params": api.family_for(cfg).init_params(cfg, 1, device=dev),
+                "opt": adamw.init(opt_config_for(cfg), second["params"]), "data": 0}
+        mesh21 = shd.make_mesh((2, 1), devices=dev)
+        state, rs_ms = events_ms(lambda: reshard_state(
+            cfg, CheckpointManager(tmp), n_steps, like, mesh21))
+        saved = {"params": as_tree(second["params"]), "m": second["opt"].m,
+                 "v": second["opt"].v}
+        got = {"params": as_tree(state["params"]), "m": state["opt"].m,
+               "v": state["opt"].v}
+        diff = [f"{k}/{p}" for k in saved
+                for (p, a), (_, b) in zip(flatten(saved[k]), flatten(got[k]))
+                if not torch.equal(a, b)]
+        if diff or int(state["data"]) != n_steps or int(state["opt"].step) != n_steps:
+            fail(f"3i: the resharded state differs from the saved one: {diff[:4]}")
+        stream = TokenStream(TokenStreamConfig(cfg.vocab, St, Bt))
+        stream.restore(n_steps)
+        batch = stream.next_batch()
+        cont = {}
+        for name, m_, st in (("1x1", shd.make_mesh((1, 1), devices=dev), second),
+                             ("2x1", mesh21, {"params": state["params"],
+                                              "opt": state["opt"]})):
+            step, _, _, in_sh, _, _ = launch_train.build(cfg, m_, seq=St, batch=Bt)
+            b = shard_batch(batch, m_, in_sh)
+            if name == "1x1":
+                _, _, met = step(st["params"], st["opt"], b)
+            else:  # the resharded step, profiled
+                (_, _, met), _ = raw_profile(f"3i train step {train_arch} B={Bt} S={St}",
+                                             lambda: step(st["params"], st["opt"], b),
+                                             card)
+            cont[name] = (float(met["loss"]), float(met["grad_norm"]))
+        rel = abs(cont["2x1"][0] - cont["1x1"][0]) / abs(cont["1x1"][0])
+        print(f"lm 3i reshard {train_arch}: step_{n_steps} onto mesh (2, 1) in "
+              f"{rs_ms:.3f} ms, {len(flatten(saved['params'])) * 3} leaves equal; one "
+              f"more step: loss/grad_norm (1, 1) {cont['1x1']}, (2, 1) {cont['2x1']}, "
+              f"rel diff {rel:.3e} (tolerance 1e-5) [{card}]")
+        if not rel <= 1e-5:
+            fail(f"3i: the resharded step differs: {cont}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shd.set_activation_mesh(None)
+    torch.cuda.empty_cache()
+    print(f"lm 3i: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2882,6 +3194,9 @@ def main() -> int:
 
     # -- 3h. the recurrent and encoder-decoder families -------------------
     recurrent_phase(dev, card_identity())
+
+    # -- 3i. the LM on a mesh: EP MoE, moonshot served, launch.train -------
+    mesh_phase(dev, card_identity())
 
     # -- 4. timings --------------------------------------------------------
     def kernel_bound(ops, packed):

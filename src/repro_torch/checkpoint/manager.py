@@ -9,18 +9,27 @@ Layout (the reference's, so either package restores what the other saved):
 Fault-tolerance properties:
   * atomic publish (tmp dir + rename) — a crash mid-save never corrupts the
     latest checkpoint;
+  * ``restore`` takes a target sharding tree, so the same checkpoint restores
+    onto a different mesh (elastic scaling: see runtime_ft/elastic.py);
   * ``keep_last`` garbage collection.
 
 A tree is flattened by JAX's rules, not ``torch.utils._pytree``'s, because
 ``restore`` holds the manifest's leaf names in order: dict keys sorted (an
 ``OrderedDict`` keeps its own order), lists and tuples by index,
-namedtuple fields as ``.<field>``, and ``None`` an empty subtree; every
-other object is a leaf.
+namedtuple fields as ``.<field>``, and ``None`` an empty subtree; an
+``nn.Module`` (the LM's ``LMParams``) is walked as its parameter dict
+(``tree.as_tree``), so its names are the reference's param-tree paths,
+and comes back as the same class built on the restored dict
+(``type(m)(m.cfg, tree)``); every other object is a leaf.
+
+A bf16 leaf is written as the reference writes one: its 2-byte words as
+a ``V2`` array, ``"bfloat16"`` in the manifest.  The port reads such a
+leaf back as bf16 (the reference's ``restore`` cannot: ``jnp.asarray``
+refuses the ``V2`` array).
 
 ``restore(step, like)`` places each leaf on the device of ``like``'s
-matching leaf, the port's counterpart of the reference's ``shardings=``
-(its mesh form, used only by the LM scaffolding's elastic reshard, is
-not ported), in that leaf's dtype.  The
+matching leaf, or, given ``shardings``, where its ``NamedSharding``
+places it (``dist.sharding.place``), in ``like``'s leaf dtype.  The
 reference keeps the saved dtype; the port casts, so that a reference PRNG
 key saved as uint32 words restores as the port's int64 key words
 (``convert.key_from_numpy``).  A value that does not survive the cast
@@ -39,6 +48,9 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+
+from ..tree import as_tree
 
 
 def _entries(node) -> Optional[List[Tuple[Any, str]]]:
@@ -57,6 +69,8 @@ def _entries(node) -> Optional[List[Tuple[Any, str]]]:
 
 
 def _flatten_with_names(tree: Any, path: Tuple[str, ...] = ()):
+    if isinstance(tree, nn.Module):
+        tree = as_tree(tree)
     entries = _entries(tree)
     if entries is None:
         return ["/".join(path)], [tree]
@@ -71,7 +85,9 @@ def _flatten_with_names(tree: Any, path: Tuple[str, ...] = ()):
 def _map(fn, tree: Any) -> Any:
     """``tree`` with each leaf replaced by ``fn(leaf)``, called in
     flatten order; a dict comes back in its flatten order, as JAX
-    rebuilds it."""
+    rebuilds it, and a module as its class over the mapped dict."""
+    if isinstance(tree, nn.Module):
+        return type(tree)(tree.cfg, _map(fn, as_tree(tree)))
     entries = _entries(tree)
     if entries is None:
         return fn(tree)
@@ -87,15 +103,43 @@ def _map(fn, tree: Any) -> Any:
     return type(tree)(*values) if hasattr(tree, "_fields") else type(tree)(values)
 
 
-def _to_numpy(leaf) -> np.ndarray:
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """-> (the array to save, the manifest's dtype name)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2")), "bfloat16"
+        leaf = t.numpy()
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
 
 
-def _restore_leaf(arr: np.ndarray, like, name: str):
+def _saved_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _restore_leaf(arr: np.ndarray, dtype: str, like, name: str) -> torch.Tensor:
+    """The saved leaf as a host tensor in ``like``'s dtype (the saved
+    dtype when ``like`` is no tensor)."""
     if not isinstance(like, torch.Tensor):
-        return torch.from_numpy(arr)
+        return _saved_tensor(arr, dtype)
+    if dtype == "bfloat16" or like.dtype == torch.bfloat16:
+        t = _saved_tensor(arr, dtype)
+        cast = t.to(like.dtype)
+        back = cast.to(t.dtype)
+        same = torch.equal(back, t)
+        if not same and t.is_floating_point() and cast.is_floating_point():
+            nan = torch.isnan(t)
+            same = torch.equal(nan, torch.isnan(back)) and torch.equal(back[~nan], t[~nan])
+        if not same:
+            raise ValueError(
+                f"leaf {name!r}: the saved {dtype} values do not survive "
+                f"the cast to {like.dtype}"
+            )
+        return cast
     want = torch.empty(0, dtype=like.dtype).numpy().dtype
     if arr.dtype != want:
         cast = arr.astype(want)
@@ -106,7 +150,7 @@ def _restore_leaf(arr: np.ndarray, like, name: str):
                 f"the cast to {like.dtype}"
             )
         arr = cast
-    return torch.from_numpy(arr).to(like.device)
+    return torch.from_numpy(arr)
 
 
 class CheckpointManager:
@@ -125,10 +169,10 @@ class CheckpointManager:
         tmp.mkdir(parents=True)
         manifest = {"step": step, "leaves": []}
         for i, (name, leaf) in enumerate(zip(names, leaves)):
-            arr = _to_numpy(leaf)
+            arr, dtype = _to_numpy(leaf)
             np.save(tmp / f"leaf_{i}.npy", arr)
             manifest["leaves"].append(
-                {"name": name, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+                {"name": name, "shape": list(arr.shape), "dtype": dtype}
             )
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         final = self.dir / f"step_{step}"
@@ -170,16 +214,29 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int, like: Any) -> Any:
-        """Restore into the structure of ``like``: each leaf a tensor on
-        the device and in the dtype of ``like``'s matching leaf (a leaf of
-        ``like`` that is no tensor gets a host tensor of the saved
-        dtype)."""
+    def restore(self, step: int, like: Any, shardings: Any = None) -> Any:
+        """Restore into the structure of ``like``: each leaf a tensor in
+        the dtype of ``like``'s matching leaf (a leaf of ``like`` that is
+        no tensor gets the saved dtype), on that leaf's device (a host
+        tensor for a leaf that is no tensor) or, if ``shardings`` is given
+        (a tree whose ``NamedSharding`` leaves match ``like``'s leaves in
+        flatten order), placed by its sharding -- possibly on a different
+        mesh than the one that saved (elastic restore)."""
         src = self.dir / f"step_{step}"
         manifest = json.loads((src / "manifest.json").read_text())
         names, likes = _flatten_with_names(like)
         if len(names) != len(manifest["leaves"]):
             raise AssertionError("tree structure mismatch")
+        sh_leaves = [None] * len(names)
+        if shardings is not None:
+            _, sh_leaves = _flatten_with_names(shardings)
+            if len(sh_leaves) != len(names):
+                raise ValueError(
+                    f"shardings has {len(sh_leaves)} leaves for {len(names)} "
+                    "leaves of like"
+                )
+        from ..dist.sharding import place
+
         out = []
         for i, (name, rec) in enumerate(zip(names, manifest["leaves"])):
             if name != rec["name"]:
@@ -187,7 +244,12 @@ class CheckpointManager:
                     f"leaf order mismatch: {name} != {rec['name']}"
                 )
             arr = np.load(src / f"leaf_{i}.npy")
-            out.append(_restore_leaf(arr, likes[i], name))
+            t = _restore_leaf(arr, rec["dtype"], likes[i], name)
+            if sh_leaves[i] is not None:
+                t = place(t, sh_leaves[i], name)
+            elif isinstance(likes[i], torch.Tensor):
+                t = t.to(likes[i].device)
+            out.append(t)
         leaves = iter(out)
         return _map(lambda _: next(leaves), like)
 

@@ -1,4 +1,3 @@
 """Deterministic synthetic data of the port (``pipeline.py``): the
-token-LM stream and the TM edge datasets.  The reference's ``shard_batch``
-(placement on a mesh) is not ported yet; ``batch_to_device`` places a
-batch on one device."""
+token-LM stream and the TM edge datasets; ``shard_batch`` places a batch
+by its shardings on a mesh, ``batch_to_device`` on one device."""

@@ -64,10 +64,22 @@ class TokenStream:
 
 def batch_to_device(batch: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
     """A numpy batch -> the same arrays as tensors on ``device`` (the CUDA
-    card unless ``device="cpu"``), the one-device form of the reference's
-    ``shard_batch``."""
+    card unless ``device="cpu"``), the one-device form of ``shard_batch``."""
     dev = resolve_device(device)
     return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh, shardings) -> Dict[str, torch.Tensor]:
+    """A numpy batch -> tensors placed by ``shardings`` (a dict of
+    ``NamedSharding`` with the batch's keys, e.g. ``input_shardings``) on
+    ``mesh``: each whole array on the mesh's device
+    (``dist.sharding.place``)."""
+    from ..dist.sharding import place
+
+    for k, sh in shardings.items():
+        if sh.mesh is not mesh:
+            raise ValueError(f"input {k!r}: its sharding is on another mesh")
+    return {k: place(batch[k], shardings[k], k) for k in sorted(batch)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,7 +31,10 @@ def resolve_device(device=None) -> torch.device:
             f"unsupported device {dev}; the port runs on 'cuda' or 'cpu'"
         )
     if not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        raise RuntimeError(
+            f"device {dev} requested but CUDA is not available; pass "
+            "device='cpu' to run the port on the CPU"
+        )
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

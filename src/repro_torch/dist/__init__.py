@@ -1,10 +1,14 @@
 """Execution of the port, the port of ``repro.dist``: the paper's
 multi-core compressed-TM executor on a mesh, the class-sharded TM train
-step, and the LM step builders on one device.
+step, the LM's sharding rules and the LM step builders.
 
 Modules:
-  sharding.py    the port's ``Mesh`` (``make_mesh``) and the batch-axis
-                 rule (``batch_axes``)
+  sharding.py    the port's ``Mesh`` (``make_mesh``), the batch-axis
+                 rule (``batch_axes``), the LM's sharding rules
+                 (``param_shardings``, ``opt_shardings``,
+                 ``input_shardings``, ``cache_shardings``, ``hint``) as
+                 ``PartitionSpec`` data, the activation mesh, and
+                 ``place`` (a tensor whole on the mesh's one device)
   tm_sharded.py  class-parallel x batch-parallel compressed-TM executor
                  (the Fig-7 multi-core split), its tiles on the
                  hand-written ``clause_table`` kernel
@@ -14,11 +18,28 @@ Modules:
                  opt_config_for) on one device
 
 One process drives every device of a mesh; there is no
-``torch.distributed``.  The LM's parameter sharding rules and the
-dry-run of the reference package are not here yet.
+``torch.distributed``.  The dry-run of the reference package is not
+here yet.
 """
 
-from .sharding import Mesh, batch_axes, make_mesh
+from .sharding import (
+    Mesh,
+    NamedSharding,
+    PartitionSpec,
+    activation_mesh,
+    batch_axes,
+    cache_shardings,
+    hint,
+    hint_spec,
+    input_shardings,
+    make_mesh,
+    mesh_device,
+    opt_shardings,
+    param_shardings,
+    place,
+    replicated,
+    set_activation_mesh,
+)
 from .steps import (
     TMTrainStep,
     make_decode_step,
@@ -37,17 +58,30 @@ from .tm_sharded import (
 
 __all__ = [
     "Mesh",
+    "NamedSharding",
+    "PartitionSpec",
     "TMShardedConfig",
     "TMTrainStep",
     "TM_CONFIGS",
+    "activation_mesh",
     "batch_axes",
     "build_tm_sharded",
+    "cache_shardings",
     "fill_clause_tables",
+    "hint",
+    "hint_spec",
+    "input_shardings",
     "make_decode_step",
     "make_mesh",
     "make_prefill_step",
     "make_tm_train_step",
     "make_train_step",
+    "mesh_device",
     "operands_from_plan",
     "opt_config_for",
+    "opt_shardings",
+    "param_shardings",
+    "place",
+    "replicated",
+    "set_activation_mesh",
 ]

@@ -1,11 +1,14 @@
-"""Device meshes of the port and the batch-axis rule, the port of the
-mesh half of ``repro.dist.sharding``.
+"""Device meshes of the port and its sharding rules, the port of
+``repro.dist.sharding``: the single source of truth for how params,
+optimizer state, activations, inputs and KV caches are laid out on a
+mesh.
 
 A ``Mesh`` is a grid of ``torch.device``s with named axes (``data``,
 ``model``, optionally ``pod``).  One process drives every device of it:
 the class x batch split of the TM executor and train step needs no
-collective for serving and only a sum of integer deltas for training, so
-there is no ``torch.distributed`` here.
+collective for serving and only a sum of integer deltas for training,
+and the expert-parallel MoE sums its tiles' partial outputs on the first
+device, so there is no ``torch.distributed`` here.
 
 A device may appear more than once in the grid.  Torch has one CPU
 device, so a (2, 2) mesh on the CPU is four tiles of that one device
@@ -16,18 +19,41 @@ that card.
     mesh = make_mesh((2, 2))                  # the card(s); raises without one
     mesh = make_mesh((2, 2), devices="cpu")   # four tiles of the CPU
 
-``batch_axes`` keeps the reference's semantics.  The parameter,
-optimizer and cache rules of the reference (``hint``,
-``param_shardings``, ...) belong to the LM scaffolding and are not here.
+The rules keep the reference's semantics entry for entry.  The batch dim
+shards over every non-``model`` axis that divides it (``batch_axes``);
+weight matrices shard their largest contraction-free dim over ``model``
+and (under FSDP) a second dim over ``data``; anything that does not
+divide evenly stays replicated, so the rules never raise on a degenerate
+mesh.  A ``PartitionSpec`` is a tuple with one entry per leading dim:
+``None``, an axis name, or a tuple of names (a one-name tuple is stored
+as the name, as ``jax.sharding.PartitionSpec`` stores it), and a
+``NamedSharding`` pairs it with its mesh.
+
+What a sharding places where.  A spec is data: it says how the
+reference would lay a tensor out, and the port keeps the whole logical
+tensor (GSPMD's logical array, so no value changes).  ``place`` (used by
+``data.pipeline.shard_batch``, ``CheckpointManager.restore(shardings=)``,
+``runtime_ft.elastic.reshard_state`` and ``launch.train``) puts it on the
+mesh's device when every tile of the mesh is one device -- the logical
+meshes of one card, and every CPU mesh.  A mesh whose tiles lie on
+different cards raises ``NotImplementedError`` naming the leaf and its
+spec: LM tensors are never split across cards.  ``hint(x, *axes)``
+computes the reference's activation spec against the installed mesh
+(``hint_spec``) and returns ``x`` itself.  The activation mesh is
+process-global, as in the reference: ``set_activation_mesh`` installs
+it, ``launch.serve.Server`` and ``launch.train.build`` install it, and
+the MoE FFN takes its expert-parallel path (``models.moe.moe_ffn_ep``)
+while one is installed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..device import resolve_device
 
@@ -138,3 +164,332 @@ def batch_shards(mesh, B: int) -> Tuple[Tuple[dict, int], ...]:
     for i, flat in enumerate(np.ndindex(*(sizes[a] for a in bx))):
         shards.append((dict(zip(bx, flat)), i))
     return tuple(shards)
+
+
+# ---------------------------------------------------------------------------
+# specs, the activation mesh and hints
+# ---------------------------------------------------------------------------
+
+def _canon(entry):
+    if isinstance(entry, (tuple, list)):
+        entry = tuple(entry)
+        if len(entry) == 0:
+            return None
+        return entry[0] if len(entry) == 1 else entry
+    return entry
+
+
+class PartitionSpec(tuple):
+    """One entry per leading dim: ``None`` (replicated), a mesh axis
+    name, or a tuple of names (the dim split over their product).  A
+    one-name tuple is stored as the name and an empty one as ``None``,
+    as ``jax.sharding.PartitionSpec`` stores them."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(_canon(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``NamedSharding``)."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+
+# Installed by set_activation_mesh; read by hint() and the MoE EP gate.
+_ACTIVATION_MESH = None
+
+
+def set_activation_mesh(mesh) -> None:
+    """Install (or clear, with None) the mesh used by activation hints."""
+    global _ACTIVATION_MESH
+    _ACTIVATION_MESH = mesh
+
+
+def activation_mesh():
+    """The installed activation mesh, or None."""
+    return _ACTIVATION_MESH
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+def hint_spec(x, *axes) -> Optional[PartitionSpec]:
+    """The reference's ``hint`` spec for ``x`` on the installed mesh: one
+    entry per leading dim, "batch" (shard over batch_axes), a mesh axis
+    name, or None; a dim the axis does not divide stays None.  None when
+    no activation mesh is installed."""
+    mesh = _ACTIVATION_MESH
+    if mesh is None:
+        return None
+    sizes = _axis_sizes(mesh)
+    spec = []
+    for d, a in enumerate(axes):
+        if a is None:
+            spec.append(None)
+        elif a == "batch":
+            spec.append(batch_axes(mesh, x.shape[d]))
+        elif a in sizes and x.shape[d] % sizes[a] == 0:
+            spec.append(a)
+        else:
+            spec.append(None)
+    return P(*spec)
+
+
+def hint(x: torch.Tensor, *axes) -> torch.Tensor:
+    """Advisory activation layout (``hint_spec``).  The port keeps every
+    activation whole on its device, so ``x`` itself comes back."""
+    hint_spec(x, *axes)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# parameter, optimizer, input and cache shardings
+# ---------------------------------------------------------------------------
+
+def _map_with_path(fn: Callable, tree, path: Tuple = ()):
+    """``fn(path, leaf)`` over a tree of dicts, namedtuples, lists and
+    tuples (an ``nn.Module`` as its parameter dict; ``None`` stays
+    None); ``path`` holds dict keys, field names and indices."""
+    from ..tree import as_tree
+
+    if isinstance(tree, nn.Module):
+        tree = as_tree(tree)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, tree[k], path + (k,)) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_with_path(fn, getattr(tree, f), path + (f,))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def map_leaves(fn: Callable, tree):
+    """``fn`` over every leaf of a tree (the kinds ``_map_with_path``
+    walks), the structure kept."""
+    return _map_with_path(lambda _, leaf: fn(leaf), tree)
+
+
+def _param_spec(cfg, mesh, path, leaf) -> PartitionSpec:
+    """One PartitionSpec per param leaf.
+
+    Rules (checked in this order):
+      * scalars / vectors (norm scales)            -> replicated
+      * embedding [V, D]                           -> vocab over model
+                                                      (+ D over data if fsdp)
+      * router [D, E]                              -> replicated (fp32, tiny)
+      * MoE expert stacks [L, E, D, F]             -> experts over model (EP)
+      * attention weights with cfg.attn_tp=False   -> replicated (pure DP)
+      * other matrices: largest non-stack dim over model; under FSDP the
+        largest remaining dim over data.  A dim is only assigned an axis
+        it divides evenly; otherwise it stays replicated.
+    """
+    sizes = _axis_sizes(mesh)
+    n_model = sizes.get("model", 1)
+    n_data = sizes.get("data", 1)
+    names = [str(p) for p in path]
+    shape = leaf.shape
+    spec = [None] * len(shape)
+
+    if len(shape) <= 1:
+        return P()
+
+    if "embed" in names:
+        if "model" in sizes and shape[0] % n_model == 0:
+            spec[0] = "model"
+        if cfg.fsdp and "data" in sizes and shape[1] % n_data == 0:
+            spec[1] = "data"
+        return P(*spec)
+
+    if "router" in names:
+        return P(*spec)
+
+    is_attn = any(n in ("attn", "wq", "wk", "wv", "wo", "self_attn",
+                        "cross_attn") for n in names)
+    if is_attn and not cfg.attn_tp:
+        return P(*spec)
+
+    is_expert = cfg.is_moe and any(
+        n in ("w_gate", "w_up", "w_down") for n in names
+    ) and "moe" in names
+    if is_expert:
+        # [L, E, D, F] (stacked) or [E, D, F]: shard the expert dim
+        e_dim = 1 if len(shape) == 4 else 0
+        if "model" in sizes and shape[e_dim] % n_model == 0:
+            spec[e_dim] = "model"
+        return P(*spec)
+
+    # generic matrix: dims after the leading stack dim are candidates;
+    # for unstacked 2-D weights all dims are candidates.
+    cand = list(range(1, len(shape))) if len(shape) >= 3 else list(range(len(shape)))
+    by_size = sorted(cand, key=lambda d: shape[d], reverse=True)
+    for d in by_size:
+        if "model" in sizes and shape[d] % n_model == 0:
+            spec[d] = "model"
+            break
+    if cfg.fsdp and "data" in sizes:
+        for d in by_size:
+            if spec[d] is None and shape[d] % n_data == 0:
+                spec[d] = "data"
+                break
+    return P(*spec)
+
+
+def param_shardings(cfg, mesh, specs) -> Any:
+    """Param-spec tree (or an ``LMParams``) -> a tree of ``NamedSharding``
+    of the same structure (an ``LMParams`` as its dict)."""
+    return _map_with_path(
+        lambda path, leaf: NamedSharding(mesh, _param_spec(cfg, mesh, path, leaf)),
+        specs,
+    )
+
+
+def opt_shardings(cfg, mesh, o_specs, p_sh) -> Any:
+    """AdamW state shards exactly like the params; step is replicated."""
+    from ..optim.adamw import AdamWState
+
+    return AdamWState(step=replicated(mesh), m=p_sh, v=p_sh)
+
+
+def input_shardings(cfg, mesh, shape, in_specs) -> Any:
+    """Batch-leading inputs shard over the batch axes; scalars replicate."""
+    bx = batch_axes(mesh, shape.global_batch)
+
+    def rule(leaf):
+        if leaf.dim() >= 1 and leaf.shape[0] == shape.global_batch:
+            return NamedSharding(mesh, P(bx, *([None] * (leaf.dim() - 1))))
+        return replicated(mesh)
+
+    return map_leaves(rule, in_specs)
+
+
+def _cache_head_sizes(cfg) -> set:
+    """Every head count a decode-cache dim of this config might carry:
+    attention heads (q and kv) plus, for the SSM/recurrent families, the
+    SSM head count (xLSTM's mLSTM head count IS ``n_heads``)."""
+    heads = set()
+    for attr in ("n_heads", "n_kv_heads"):
+        v = getattr(cfg, attr, None)
+        if v:
+            heads.add(int(v))
+    if getattr(cfg, "family", "") in ("ssm_xlstm", "hybrid"):
+        from ..models.ssm import ssm_dims  # deferred: models import dist
+
+        heads.add(ssm_dims(cfg)[1])
+    return heads
+
+
+def cache_shardings(cfg, mesh, shape, c_specs) -> Any:
+    """Decode caches shard their batch dim over the batch axes and their
+    HEAD dim over model -- for every cache family, not just attention KV:
+
+      KV          [L, B, S, H, hd]       head at dim 3
+      SSM conv    [L, B, K-1, d_conv]    batch only (channel mix, no heads)
+      SSM state   [L, B, H, N, P]        head at dim 2
+      hybrid SSM  [G, E, B, H, N, P]     batch at dim 2, head at dim 3
+      mLSTM C/n/m [P, B, H, hd, hd] / [P, B, H, hd] / [P, B, H]
+                                         head at dim 2
+      sLSTM       [P, B, D]              batch only (fused per-channel)
+
+    The head dim is recognized by its SIZE (one of the config's head
+    counts, see ``_cache_head_sizes``): the first such dim after the
+    batch dim takes "model", except the KV convention [stack, B, S, H,
+    hd] which pins dim 3 so a window length colliding with a head count
+    cannot steal the assignment.  The pin checks the shape signature,
+    not just rank: the mLSTM C cache [P, B, H, hd, hd] is also 5-D and
+    its per-head feature dim 3 coincides with a head count whenever
+    hd == H -- a square trailing [hd, hd] with a head count at dim 2 is
+    recognized as that matrix-memory signature and falls through to the
+    generic first-head-after-batch rule (dim 2).  Dims that don't divide
+    the axis stay replicated, as everywhere in this module."""
+    sizes = _axis_sizes(mesh)
+    n_model = sizes.get("model", 1)
+    bx = batch_axes(mesh, shape.global_batch)
+    heads = _cache_head_sizes(cfg)
+
+    def rule(leaf):
+        ndim = leaf.dim()
+        spec = [None] * ndim
+        # caches are [stack, B, ...] (dim 1), prefill-less [B, ...], or
+        # double-stacked hybrid groups [G, E, B, ...] (dim 2)
+        b_dim = next(
+            (d for d in (1, 0, 2) if d < ndim and leaf.shape[d] == shape.global_batch),
+            None,
+        )
+        if b_dim is not None:
+            spec[b_dim] = bx
+        if "model" in sizes:
+            def head_at(d):
+                return leaf.shape[d] in heads and leaf.shape[d] % n_model == 0
+
+            is_mlstm_c = (
+                ndim == 5
+                and leaf.shape[3] == leaf.shape[4]
+                and leaf.shape[2] in heads
+            )
+            if ndim == 5 and b_dim == 1 and head_at(3) and not is_mlstm_c:
+                spec[3] = "model"  # the KV [L, B, S, H, hd] convention
+            else:
+                for d in range((b_dim if b_dim is not None else -1) + 1, ndim):
+                    if spec[d] is None and head_at(d):
+                        spec[d] = "model"
+                        break
+        return NamedSharding(mesh, P(*spec))
+
+    return map_leaves(rule, c_specs)
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+def mesh_device(mesh, what: str = "a tensor") -> torch.device:
+    """The one device every tile of ``mesh`` is on.  A mesh over several
+    devices raises ``NotImplementedError``: the port keeps every LM
+    tensor whole on one device."""
+    devices = {str(d) for d in mesh.devices.flat}
+    if len(devices) != 1:
+        raise NotImplementedError(
+            f"{what} on a mesh of {sorted(devices)}: the port places LM tensors "
+            "only on a mesh whose tiles are all one device"
+        )
+    return mesh.devices.flat[0]
+
+
+def _check_spec(shape, spec, mesh, name: str) -> None:
+    sizes = _axis_sizes(mesh)
+    if len(spec) > len(shape):
+        raise ValueError(f"leaf {name!r}: spec {spec} has more entries than {tuple(shape)}")
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+        n = 1
+        for a in axes:
+            if a not in sizes:
+                raise ValueError(f"leaf {name!r}: spec {spec} names no axis {a!r} "
+                                 f"of the mesh {tuple(mesh.axis_names)}")
+            n *= sizes[a]
+        if shape[d] % n:
+            raise ValueError(f"leaf {name!r}: spec {spec} splits dim {d} of "
+                             f"{tuple(shape)} {n} ways")
+
+
+def place(x, sharding: NamedSharding, name: str = "") -> torch.Tensor:
+    """``x`` (a tensor, numpy array or scalar) as a tensor laid out by
+    ``sharding``: the whole logical tensor on the mesh's device, which
+    must be the same for every tile (see the module docstring)."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    _check_spec(t.shape, sharding.spec, sharding.mesh, name)
+    dev = resolve_device(mesh_device(
+        sharding.mesh, f"leaf {name!r} with spec {sharding.spec}"))
+    return t.to(dev)

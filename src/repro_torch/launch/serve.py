@@ -1,7 +1,9 @@
 """Batched serving driver (LM prefill + greedy decode), the port of
 ``repro.launch.serve``, with the reference's fixed-capacity discipline:
 the decode cache's capacity is fixed at construction and a model swap is
-a weight rewrite.
+a weight rewrite.  A mesh installs the activation mesh, as the
+reference's does (MoE layers then take the expert-parallel path); the
+CLI serves on a (1, 1) mesh of its device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b-smoke \\
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
@@ -17,6 +19,7 @@ import torch
 
 from ..configs.registry import get
 from ..device import resolve_device
+from ..dist import sharding as shd
 from ..dist.steps import make_decode_step, make_prefill_step
 from ..models.api import family_for
 
@@ -26,12 +29,20 @@ class Server:
     ``device`` (the CUDA card unless ``device="cpu"``).  The decode-cache
     capacity is ``prompt_cap + gen_cap``, fixed at construction, so every
     ``generate`` call runs the same shapes whatever the requested token
-    count."""
+    count.  ``mesh`` (every tile on ``device``) is installed as the
+    activation mesh, which stays installed after the server is gone."""
 
-    def __init__(self, cfg, *, batch: int, prompt_cap: int, gen_cap: int = 16,
-                 device=None):
+    def __init__(self, cfg, mesh=None, *, batch: int, prompt_cap: int,
+                 gen_cap: int = 16, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            on = resolve_device(shd.mesh_device(mesh, "Server"))
+            if on != self.device:
+                raise ValueError(f"the mesh's tiles are on {on}, the server on "
+                                 f"{self.device}")
+            shd.set_activation_mesh(mesh)
         self.fam = family_for(cfg)
         self.batch = batch
         self.prompt_cap = prompt_cap
@@ -89,9 +100,11 @@ def main():
     args = ap.parse_args()
 
     cfg = get(args.arch)
+    device = resolve_device(args.device)
+    mesh = shd.make_mesh((1, 1), ("data", "model"), devices=device)
     # decode cache capacity (prompt + generation) is fixed at construction
-    server = Server(cfg, batch=args.batch, prompt_cap=args.prompt_len,
-                    gen_cap=args.gen, device=args.device)
+    server = Server(cfg, mesh, batch=args.batch, prompt_cap=args.prompt_len,
+                    gen_cap=args.gen, device=device)
     server.load_weights(family_for(cfg).init_params(cfg, 0, device=server.device))
 
     rng = np.random.default_rng(0)

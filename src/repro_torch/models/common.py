@@ -9,8 +9,9 @@ backward recomputes block by block, so neither direction holds more than
 one block of scores.  Masks use ``-1e30``, not ``-inf``, as the reference's
 do: a query row whose keys are all masked averages ``v`` uniformly.
 
-The reference's sharding hints (``dist.sharding.hint``) are no-ops on one
-device and are left out.
+The reference's activation hints stay: ``embed_lookup`` and
+``causal_lm_loss`` call the port's ``dist.sharding.hint``, which states
+the layout against the installed mesh and keeps the tensor whole.
 """
 
 from __future__ import annotations
@@ -324,7 +325,9 @@ def attention_block(
 # ---------------------------------------------------------------------------
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens]
+    from ..dist.sharding import hint  # deferred: dist imports models
+
+    return hint(embed[tokens], "batch", None, None)
 
 
 def lm_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
@@ -334,8 +337,10 @@ def lm_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor, true_vocab: int):
     """Next-token cross entropy in fp32; padded vocab rows masked out."""
+    from ..dist.sharding import hint  # deferred: dist imports models
+
     V = logits.shape[-1]
-    logits = logits.to(torch.float32)
+    logits = hint(logits.to(torch.float32), "batch", None, "model")
     vocab_mask = torch.arange(V, device=logits.device) < true_vocab
     logits = torch.where(vocab_mask, logits, NEG)
     shift_logits = logits[:, :-1]

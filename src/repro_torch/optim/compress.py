@@ -11,11 +11,14 @@ Usage (train loop):
     comp = GradCompressor.init(params)
     grads_q, comp = comp.compress(grads)     # before the reduce
     grads   = comp.decompress(grads_q)       # after the reduce
+
+``compressed_psum`` is the reduce: one process holds every member of the
+data axis, so it takes their ``CompressedGrads`` in axis order.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -55,3 +58,21 @@ class GradCompressor(NamedTuple):
     @staticmethod
     def decompress(cg: CompressedGrads) -> Any:
         return tree_map(lambda q, s: q.to(torch.float32) * s, cg.q, cg.scale)
+
+
+def compressed_psum(members: Sequence[CompressedGrads]) -> Any:
+    """The all-reduce of the int8 payload (the reference's
+    ``compressed_psum`` over an axis): each member's dequantized tree
+    ``q * scale``, summed in fp32 in axis order on the first member's
+    devices.  Every member of the reference's axis receives this sum."""
+    if not members:
+        raise ValueError("compressed_psum needs at least one member")
+    deq = [GradCompressor.decompress(cg) for cg in members]
+
+    def total(first, *rest):
+        out = first.clone()
+        for g in rest:
+            out.add_(g.to(first.device))
+        return out
+
+    return tree_map(total, *deq)

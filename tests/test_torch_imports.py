@@ -3,7 +3,8 @@ it imports no JAX and nothing of ``repro`` (every module, the kernel
 packages ``tm_popcount``, ``tm_interp``, ``clause_eval``,
 ``clause_matmul``, ``tm_train``, ``interp_stream`` and ``clause_table``,
 ``prune``, ``data``, ``dist``, ``core.runtime`` and the LM modules
-``configs``, ``optim``, ``models`` and ``launch.serve`` among them,
+``configs``, ``optim``, ``models``, ``launch.serve``, ``launch.train``,
+``launch.mesh`` and ``runtime_ft.elastic`` among them,
 imports without ``nvcc``);
 its entry points refuse to run without a CUDA card unless
 ``device="cpu"`` is asked for; the kernel wrappers send a CUDA tensor to
@@ -49,7 +50,9 @@ MODULES = ["repro_torch.core.runtime", "repro_torch.core.interp",
            "repro_torch.models.dense", "repro_torch.models.ssm",
            "repro_torch.models.xlstm", "repro_torch.models.recurrent_lm",
            "repro_torch.models.encdec", "repro_torch.models.api",
-           "repro_torch.launch.serve", "repro_torch.convert"]
+           "repro_torch.launch.serve", "repro_torch.convert",
+           "repro_torch.launch.train", "repro_torch.launch.mesh",
+           "repro_torch.runtime_ft.elastic"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -98,7 +101,9 @@ def _model():
                                    "sharded train engine", "init_params", "Server",
                                    "make_train_step", "batch_to_device",
                                    "lm_params_from_numpy", "XLSTM.init_params",
-                                   "Zamba2.init_params", "Whisper.init_params"])
+                                   "Zamba2.init_params", "Whisper.init_params",
+                                   "Server with a mesh", "launch.train.main",
+                                   "make_production_mesh", "shard_batch"])
 def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is the card")
@@ -106,8 +111,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
     from repro_torch.configs.registry import get
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.core import booleanize, runtime
-    from repro_torch.data.pipeline import batch_to_device
-    from repro_torch.dist import make_train_step, opt_config_for
+    from repro_torch.data.pipeline import batch_to_device, shard_batch
+    from repro_torch.dist import make_train_step, opt_config_for, sharding
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.serve import Server
     from repro_torch.models import api, dense
 
@@ -117,6 +124,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
     x = np.zeros((8, 10), np.uint8)
     y = np.zeros(8, np.int32)
     lm = get("stablelm-3b-smoke")
+    # a mesh of the card, as one built on a machine that has it
+    card_mesh = sharding.Mesh(np.full((1, 1), torch.device("cuda", 0), object),
+                              ("data", "model"))
     calls = {
         "Accelerator": lambda: Accelerator(plan),
         "for_models": lambda: Accelerator.for_models([_model()]),
@@ -147,10 +157,23 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
             get(a), 0))(arch) for name, arch in (("XLSTM", "xlstm-125m-smoke"),
                                                  ("Zamba2", "zamba2-2.7b-smoke"),
                                                  ("Whisper", "whisper-medium-smoke"))},
+        "Server with a mesh": lambda: Server(lm, card_mesh, batch=2, prompt_cap=8),
+        "launch.train.main": lambda: train.main(["--arch", "stablelm-3b-smoke",
+                                                 "--steps", "1"]),
+        "make_production_mesh": lambda: make_production_mesh(),
+        "shard_batch": lambda: shard_batch({"tokens": x}, card_mesh, {
+            "tokens": sharding.NamedSharding(card_mesh, sharding.P("data", None))}),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
     assert Accelerator(plan, device="cpu").engine.device.type == "cpu"
+    if entry in ("Server with a mesh", "shard_batch"):
+        cpu_mesh = make_mesh((1, 1), devices="cpu")
+        assert Server(lm, cpu_mesh, batch=2, prompt_cap=8, device="cpu").mesh is cpu_mesh
+        sharding.set_activation_mesh(None)
+        placed = shard_batch({"tokens": x}, cpu_mesh, {
+            "tokens": sharding.NamedSharding(cpu_mesh, sharding.P("data", None))})
+        assert placed["tokens"].device.type == "cpu"
     if entry in ("init_params", "Server", "make_train_step"):
         params = dense.init_params(lm, 0, device="cpu")
         assert params.embed.device.type == "cpu"

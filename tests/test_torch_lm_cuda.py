@@ -3,7 +3,10 @@ card against the CPU, from the same fp32 numpy parameters (std 0.3):
 ``loss``, ``prefill`` (logits and every cache leaf) and a decode step
 within 1e-3 (fp32; TF32 stays off, PyTorch's default), then
 one bf16 train step with a finite loss and grad norm that changes the
-parameters.
+parameters; and the expert-parallel MoE (``moe_ffn_ep``) on logical
+meshes of the card against ``moe_ffn`` on each data shard's rows, fp32,
+within 1e-5 of the largest output magnitude (not bit-equal: the
+combine's float ``index_add`` uses atomics on CUDA).
 
 Marked ``cuda``; every test skips itself without a card.  The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -85,3 +88,26 @@ def flatten_cache(cache):
     if isinstance(cache, tuple):
         return [t for c in cache for t in flatten_cache(c)]
     return [cache]
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2), (1, 4), (2, 2)])
+def test_moe_ffn_ep_on_the_card_matches_moe_ffn(dev, shape):
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.models import moe
+
+    cfg = get("moonshot-v1-16b-a3b-smoke")
+    rng = np.random.default_rng(1)
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": rng.normal(size=(D, E)),
+         "w_gate": rng.normal(size=(E, D, F)) * 0.05,
+         "w_up": rng.normal(size=(E, D, F)) * 0.05,
+         "w_down": rng.normal(size=(E, F, D)) * 0.05}
+    p = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in p.items()}
+    x = torch.from_numpy(rng.normal(size=(4, 32, D)).astype(np.float32)).to(dev)
+    mesh = make_mesh(shape, devices=dev)
+    y = moe.moe_ffn_ep(p, x, cfg, mesh)
+    rows = 4 // shape[0]
+    want = torch.cat([moe.moe_ffn(p, x[i * rows:(i + 1) * rows], cfg)
+                      for i in range(shape[0])])
+    assert y.device == x.device and torch.isfinite(y).all()
+    assert float((y - want).abs().max()) <= 1e-5 * float(want.abs().max())
