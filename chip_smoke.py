@@ -158,6 +158,23 @@ features, ~17k includes, 8192 datapoints per flush) it
      deleted (``[restore] step 2``, the same losses and grad norms), the
      step-4 state resharded onto a (2, 1) mesh (every leaf equal) and one
      more step there giving the (1, 1) continuation's loss;
+  3j. the dry run (``dryrun_phase``, right after 3g; no kernel of its
+     own): ``launch.dryrun.run_cell`` traces 3g's stablelm-3b prefill (4
+     x 4,096) and train step (B = 4, S = 4,096) on a (1, 1) mesh of spec
+     arithmetic on the host (nothing placed on the card), then one real
+     step of each runs on the card under ``FlopCounterMode``: the card's
+     flop count equals the record's ``flops_per_device`` exactly, the
+     params and optimizer state on the card equal the record's argument
+     bytes less the inputs, and 3g's measured times are not under the
+     record's lower bound ``max(t_compute, t_memory_lower)`` (the fused
+     memory term of ``analysis.report.enrich``; the ratios to it and to
+     the unfused ``max(t_compute, t_memory)``, the model-FLOPs share and
+     peak memory beside argument + temp printed); ``dryrun_tm`` of
+     tm-paper and tm-xl on (1, 1): 3f's ``clause_table`` device µs not
+     under the record's ``t_memory`` (its operands once, its sums once;
+     the ratio to the capacity bound printed beside); and ``python -m
+     repro_torch.launch.dryrun --arch stablelm-3b --shape train_4k``
+     (pod16x16, full width) runs in a process that sees no card, timed;
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
@@ -177,20 +194,24 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-# no int32 ALU rate is published beside the tensor-core rates; the fp32
-# non-tensor rate (67 TFLOP/s) is the highest candidate, so the bound
-# derived from it stays a lower bound on time
-PEAK_OPS_PER_S = 67e12
-PEAK_INT8_TC_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
+sys.path.insert(0, str(ROOT / "src"))
+try:  # the card's rates (main() fails first where the repo is not beside it)
+    # no int32 ALU rate is published beside the tensor-core rates; the fp32
+    # non-tensor rate (PEAK_FP32_FLOPS) is the highest candidate, so the
+    # bound derived from it stays a lower bound on time
+    from repro_torch.analysis.roofline import (
+        HBM_BW, PEAK_FLOPS, PEAK_FP32_FLOPS, PEAK_INT8_OPS, model_flops,
+    )
+except ImportError:
+    HBM_BW = PEAK_FLOPS = PEAK_FP32_FLOPS = PEAK_INT8_OPS = model_flops = None
 REPS = 30
 PLAIN_REPS = 10
 
 
-def bound(n_bytes: int, n_ops: int, peak_ops: float = PEAK_OPS_PER_S):
+def bound(n_bytes: int, n_ops: int, peak_ops: float = PEAK_FP32_FLOPS):
     """(bound ms, what bounds it): the larger of bytes over the memory
     rate and operations over the given peak rate."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / peak_ops
+    t_bytes, t_ops = n_bytes / HBM_BW, n_ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1433,7 +1454,9 @@ def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
     train engine and a recal loop with ``RecalWorker(mesh=)`` against the
     packed engine.  ``configs``: the sharded configurations (default
     ``TM_CONFIGS``).  Returns the ``clause_table`` row of the kernels
-    line."""
+    line and each case's (µs per ``clause_table`` call, how it was
+    taken): the device time from the profiler, or the CUDA events time
+    when three profiles kept no device event."""
     import ctypes
 
     import numpy as np
@@ -1524,7 +1547,7 @@ def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
                        p1, dense)
         tms_inputs[name] = (scfg, plan, x.to(torch.uint8).cpu().numpy(), dense)
         del acts, state
-    rows = {}
+    rows, device_us = {}, {}
     attrs = [_build.attributes("clause_table", which) for which in (0, 1)]
     lib = _build.load("clause_table")
     resident = {}
@@ -1552,13 +1575,20 @@ def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
         k_ms = median_ms(lambda: ctk.clause_table(idx, pol, p1))
         p_ms = median_ms(lambda: clause_table_plain(idx, pol, p1),
                          reps=3 if p1.numel() > 1 << 22 else PLAIN_REPS, warmup=1)
-        with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]
-        ) as prof:
-            for _ in range(10):
-                ctk.clause_table(idx, pol, p1)
-            torch.cuda.synchronize()
-        us, n_dev, _ = device_per_call(prof, 10)
+        for _ in range(3):  # the profiler now and then keeps no device event
+            with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]
+            ) as prof:
+                for _ in range(10):
+                    ctk.clause_table(idx, pol, p1)
+                torch.cuda.synchronize()
+            us, n_dev, _ = device_per_call(prof, 10)
+            if n_dev:
+                break
+        # without device events the events time (wrapper included, never
+        # under the device time) stands in
+        device_us[name] = ((us, "on the device") if n_dev else
+                           (k_ms * 1e3, "by CUDA events, no device event kept"))
         n_bytes, n_ops = clause_table_work(idx, pol, p1)
         bound_ms, bound_by = bound(n_bytes, n_ops)
         rows[name] = (k_ms, p_ms, bound_ms, bound_by, None)
@@ -1727,7 +1757,7 @@ def sharded_phase(dev, cfg, served, models, X, oracles, configs=None):
           f" TMProgram bytes; phase {time.perf_counter() - t_phase:.3f} s")
     k_ms, p_ms, bound_ms, bound_by, lib = rows["served a"]
     return ("clause_table", "src/repro/dist/tm_sharded.py:151", main_launches,
-            max_err, (k_ms, p_ms, bound_ms, bound_by, lib))
+            max_err, (k_ms, p_ms, bound_ms, bound_by, lib)), device_us
 
 
 # ---------------------------------------------------------------------------
@@ -1739,7 +1769,6 @@ SMOKE_ARCHS = ("stablelm-3b-smoke", "starcoder2-7b-smoke",
                "moonshot-v1-16b-a3b-smoke", "internvl2-26b-smoke")
 LM_TOL = 1e-3  # card vs CPU in fp32, TF32 off (PyTorch's default)
 ATTN_TOL, ATTN_GRAD_TOL = 1e-4, 5e-4  # streaming vs plain on the card, fp32
-PEAK_BF16_FLOPS = 989.4e12  # H100 SXM dense bf16, NVIDIA's datasheet
 
 
 def card_identity() -> str:
@@ -1811,10 +1840,13 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
     microbatches, one of them profiled; the streaming attention held to
     the plain one at one layer's width and both timed beside
     ``scaled_dot_product_attention``; and the serving CLI.  ``card``
-    (name, power limit) goes on every line with a number."""
+    (name, power limit) goes on every line with a number.  Returns
+    ``arch``'s params (after the train steps) and the shapes and median
+    ms of its prefill and train step, for phase 3j."""
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.data.pipeline import TokenStream, TokenStreamConfig
@@ -1948,6 +1980,7 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
           f"{B} x {server.cache_cap} positions, {B * server.cache_cap / p_ms * 1e3:.1f} "
           f"tok/s; decode {d_ms:.3f} ms per step (median of {len(decode_ms)}), "
           f"{B / d_ms * 1e3:.1f} tok/s; peak memory {peak:.3f} GiB [{card}]")
+    server_cap = server.cache_cap
     del server, cache, logits, batch
 
     # -- arch at full width and depth: train ------------------------------
@@ -1973,13 +2006,15 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"lm 3g train {arch}: B={Bt} S={St} microbatches={mb}, {s_ms:.3f} ms per "
           f"step (median of 3), {tok_s:.1f} tok/s; peak memory {peak:.3f} GiB [{card}]")
+    share = model_flops(cfg, ShapeSpec("train", St, Bt, "train"), n_params) / (
+        PEAK_FLOPS * s_ms / 1e3)
     print(f"lm 3g train {arch}: model-FLOPs share 6 x {n_params} x {tok_s:.1f} tok/s "
-          f"/ 989.4e12 = {6 * n_params * tok_s / PEAK_BF16_FLOPS:.4f} (989.4 TFLOP/s: "
+          f"/ {PEAK_FLOPS / 1e12:.1f}e12 = {share:.4f} ({PEAK_FLOPS / 1e12:.1f} TFLOP/s: "
           f"H100 SXM dense bf16, NVIDIA's datasheet) [{card}]")
     batch = stream.next_batch()
     params, state, m = profile_device(
         "3g train step", lambda: step(params, state, batch), card)
-    del params, state, step, m
+    del state, step, m
 
     # -- attention at one layer's full width ------------------------------
     H, hd = cfg.n_heads, cfg.head_dim
@@ -2016,7 +2051,7 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
     # causal attention: QK^T and PV over the lower triangle; q, k, v read
     # and the output written once, bf16
     n_ops = 2 * 2 * attn_seq * attn_seq * H * hd // 2
-    bound_ms, bound_by = bound(4 * attn_seq * H * hd * 2, n_ops, PEAK_BF16_FLOPS)
+    bound_ms, bound_by = bound(4 * attn_seq * H * hd * 2, n_ops, PEAK_FLOPS)
     print(f"time 3g attention bf16 B=1 S={attn_seq} H={H} hd={hd} causal (median of "
           f"{REPS}): " + ", ".join(f"{k} {t:.6f} ms" for k, t in times.items())
           + f"; bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
@@ -2036,6 +2071,155 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
         fail(f"3g: the serving CLI failed: {cli.stdout} {cli.stderr}")
     torch.cuda.empty_cache()
     print(f"lm 3g: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"arch": arch, "params": params, "prefill": (B, server_cap),
+            "prefill_ms": p_ms, "train": (Bt, St), "train_ms": s_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: the dry run (launch.dryrun, dryrun_tm) held against the card
+# ---------------------------------------------------------------------------
+
+def dryrun_phase(dev, card, lm, table_us, cli_cell=("stablelm-3b", "train_4k")):
+    """Phase 3j: the dry run against the card.  ``lm`` is ``lm_phase``'s
+    return (the full-width params of its arch, the shapes and median ms
+    of its prefill and train step); ``table_us`` is phase 3f's (µs, how
+    taken) per ``clause_table`` call by case.  For each of 3g's two steps,
+    ``run_cell`` traces the cell on a (1, 1) mesh of spec arithmetic
+    (nothing placed on the card), then one real step runs on the card
+    under ``FlopCounterMode``.  It fails if the card's flop count is not
+    the record's ``flops_per_device`` exactly (the count depends only on
+    shapes: a difference is a different program), if the bytes of the
+    params and optimizer state on the card are not the record's argument
+    bytes less the inputs, if the dry run moved the card's allocated
+    bytes, or if 3g's measured time is under the record's lower bound
+    ``max(t_compute, t_memory_lower)`` (an impossible reading: the count
+    is wrong).  ``t_memory_lower`` is ``report.enrich``'s fused term
+    (arguments and outputs once, the peak of live temporaries once each
+    way); the record's ``t_memory`` counts every aten op's inputs and
+    outputs, an unfused upper bound on the traffic, so the time over
+    ``max(t_compute, t_memory)`` is printed beside and not gated.  It
+    also prints the model-FLOPs share and the peak memory beside
+    argument + temp.  ``dryrun_tm`` of tm-paper and tm-xl on (1, 1): 3f's
+    ``clause_table`` device µs at the same batch must be at or above the
+    record's ``t_memory`` (the executor's operands read once and its sums
+    written once); the ratio to the record's capacity bound
+    ``max(t_compute, t_memory)`` (every slot ANDed, which ``clause_table``
+    need not do) is printed beside.  Last, the CLI
+    traces ``cli_cell`` on the production mesh in a process that sees no
+    card, timed."""
+    import os
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis.report import enrich
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.dist.steps import make_prefill_step, make_train_step, opt_config_for
+    from repro_torch.dist.tm_sharded import dryrun_tm
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    t_phase = time.perf_counter()
+    arch, params = lm["arch"], lm["params"]
+    cfg = get(arch)
+    one = make_mesh((1, 1), devices="meta")
+    rng = np.random.default_rng(0)
+    for kind in ("prefill", "train"):
+        B, S = lm[kind]
+        measured_s = lm[f"{kind}_ms"] / 1e3
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        rec = run_cell(arch, None, False, verbose=False, shape=ShapeSpec(kind, S, B, kind),
+                       mesh=one, mesh_name="1x1", out_dir=None)
+        dry_s = time.perf_counter() - t0
+        if torch.cuda.memory_allocated() != before:
+            fail(f"3j: the dry run of {arch} {kind} allocated on the card")
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if kind == "prefill":
+            state = None
+            with FlopCounterMode(display=False) as fc:
+                out = make_prefill_step(cfg)(params, {"tokens": tokens})
+            on_card = nbytes(params.parameters())
+        else:
+            opt = opt_config_for(cfg)
+            state = adamw.init(opt, params)
+            on_card = nbytes(params.parameters()) + nbytes(
+                [state.step, *leaves(state.m), *leaves(state.v)])
+            step = make_train_step(cfg, opt, microbatches=cfg.train_microbatches, device=dev)
+            with FlopCounterMode(display=False) as fc:
+                out = step(params, state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del out, state
+        card_flops = fc.get_total_flops()
+        ma = rec["memory_analysis"]
+        args_less_inputs = ma["argument_size_in_bytes"] - tokens.numel() * tokens.element_size()
+        enrich(rec)
+        bound_s = max(rec["t_compute"], rec["t_memory_lower"])
+        unfused_s = max(rec["t_compute"], rec["t_memory"])
+        share = rec["model_flops_global"] / (PEAK_FLOPS * measured_s)
+        print(f"dryrun 3j {arch} {kind} B={B} S={S} mesh 1x1: traced in {dry_s:.2f} s "
+              f"(u=1, u=2: {rec['lower_s'] + rec['compile_s']:.2f} s); flops "
+              f"{rec['flops_per_device']:.0f}, card's FlopCounterMode {card_flops}; "
+              f"bytes accessed {rec['hbm_bytes_per_device']:.0f}; params + state on "
+              f"the card {on_card} B, record's arguments less the inputs "
+              f"{args_less_inputs:.0f} B [{card}]")
+        print(f"dryrun 3j {arch} {kind}: lower bound max(t_compute "
+              f"{rec['t_compute'] * 1e3:.3f}, t_memory_lower {rec['t_memory_lower'] * 1e3:.3f})"
+              f" = {bound_s * 1e3:.3f} ms; unfused max(t_compute, t_memory "
+              f"{rec['t_memory'] * 1e3:.3f}) = {unfused_s * 1e3:.3f} ms; 3g measured "
+              f"{measured_s * 1e3:.3f} ms = {measured_s / bound_s:.3f} x the lower bound, "
+              f"{measured_s / unfused_s:.3f} x the unfused; model-FLOPs share {rec['model_flops_global']:.6e} / ({PEAK_FLOPS / 1e12:.1f}e12 "
+              f"x {measured_s:.4f} s) = {share:.4f}; peak memory "
+              f"{peak / 2**30:.3f} GiB, record's argument + temp "
+              f"{(ma['argument_size_in_bytes'] + ma['temp_size_in_bytes']) / 2**30:.3f} GiB "
+              f"[{card}]")
+        if float(card_flops) != rec["flops_per_device"]:
+            fail(f"3j: {arch} {kind}: the card counts {card_flops} flops, the dry run "
+                 f"{rec['flops_per_device']}")
+        if on_card != args_less_inputs:
+            fail(f"3j: {arch} {kind}: {on_card} B of params and state on the card, "
+                 f"the record's arguments less the inputs {args_less_inputs}")
+        if measured_s < bound_s:
+            fail(f"3j: {arch} {kind}: 3g measured {measured_s} s, under the lower bound "
+                 f"{bound_s} s")
+    for name in ("tm-paper", "tm-xl"):
+        rec = dryrun_tm(name, mesh=one, mesh_name="1x1")
+        lower_us = rec["t_memory"] * 1e6
+        capacity_us = max(rec["t_compute"], rec["t_memory"]) * 1e6
+        us, source = table_us[name]
+        print(f"dryrun 3j dryrun_tm {name} mesh 1x1: integer ops {rec['flops_per_device']:.0f}, "
+              f"bytes {rec['hbm_bytes_per_device']:.0f}; lower bound t_memory {lower_us:.3f} us, "
+              f"capacity bound {capacity_us:.3f} us ({rec['bottleneck']}); 3f's clause_table "
+              f"{us:.3f} us {source} = {us / lower_us:.3f} x the lower bound, "
+              f"{us / capacity_us:.3f} x the capacity bound [{card}]")
+        if us < lower_us:
+            fail(f"3j: clause_table {name} {us} us, under the dry run's lower bound "
+                 f"{lower_us} us")
+    arch_c, shape_c = cli_cell
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch_c,
+         "--shape", shape_c],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""},
+    )
+    cli_s = time.perf_counter() - t0
+    ok = [line for line in cli.stdout.splitlines() if line.startswith("[OK]")]
+    print(f"dryrun 3j cli: {arch_c} {shape_c} pod16x16 on the host (no card visible): "
+          f"rc {cli.returncode} in {cli_s:.2f} s: {ok[:1]}")
+    if cli.returncode != 0 or not ok:
+        fail(f"3j: the dry-run CLI failed: {cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    torch.cuda.empty_cache()
+    print(f"dryrun 3j: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -2046,14 +2230,13 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
 RECURRENT_SMOKE = ("xlstm-125m-smoke", "zamba2-2.7b-smoke", "whisper-medium-smoke")
 BLOCKS = ("ssm_forward", "ssm_decode_step", "mlstm_forward", "mlstm_decode_step",
           "slstm_forward", "slstm_decode_step")  # as recurrent_lm names them
-PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (datasheet)
 
 
 def bound_mixed(n_bytes: int, bf16_ops: int, fp32_ops: int):
     """(bound ms, what bounds it): bytes at 3.35 TB/s against the bf16
     products at 989.4 TFLOP/s plus the fp32 ones at 67 TFLOP/s."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = bf16_ops / PEAK_BF16_FLOPS + fp32_ops / PEAK_FP32_FLOPS
+    t_bytes = n_bytes / HBM_BW
+    t_ops = bf16_ops / PEAK_FLOPS + fp32_ops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2164,6 +2347,7 @@ def recurrent_phase(dev, card, serve=(4, 1000, 24),
     bounds.  ``card`` goes on every line with a number."""
     import numpy as np
     import torch
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.dist.steps import (
@@ -2457,6 +2641,7 @@ def mesh_phase(dev, card, moe_arch="moonshot-v1-16b-a3b", moe_x=(4, 1024),
     import numpy as np
     import torch
     from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get
     from repro_torch.data.pipeline import TokenStream, TokenStreamConfig, shard_batch
     from repro_torch.dist import sharding as shd
@@ -2511,8 +2696,8 @@ def mesh_phase(dev, card, moe_arch="moonshot-v1-16b-a3b", moe_x=(4, 1024),
                 -1, cfg.d_model).float(), p16["router"]) for i in range(n_data)]
             n_bytes, kept, slots = moe_layer_work(cfg, logits, C)
             flops = 6 * cfg.d_model * cfg.d_ff
-            bound_ms, bound_by = bound(n_bytes, kept * flops, PEAK_BF16_FLOPS)
-            pad_ms, _ = bound(n_bytes, slots * flops, PEAK_BF16_FLOPS)
+            bound_ms, bound_by = bound(n_bytes, kept * flops, PEAK_FLOPS)
+            pad_ms, _ = bound(n_bytes, slots * flops, PEAK_FLOPS)
             print(f"lm 3i moe_ffn_ep {moe_arch} layer x[{B}, {S}, {cfg.d_model}] "
                   f"E={cfg.n_experts} k={cfg.top_k} F={cfg.d_ff} on mesh {shape} "
                   f"(capacity {C} per expert and shard): fp32 max abs err {err:.3e} "
@@ -2646,10 +2831,12 @@ def mesh_phase(dev, card, moe_arch="moonshot-v1-16b-a3b", moe_x=(4, 1024),
         step_s = statistics.median(first["step_s"][s_] for s_ in range(2, n_steps + 1))
         tok_s = Bt * St / step_s
         n_params = api.count_params(cfg)
+        share = model_flops(cfg, ShapeSpec("train", St, Bt, "train"), n_params) / (
+            PEAK_FLOPS * step_s)
         print(f"lm 3i train {train_arch}: B={Bt} S={St} mesh 1x1, {n_params} params: "
               f"{step_s:.4f} s per step (host clock to the loss read, median of steps "
               f"2..{n_steps}), {tok_s:.1f} tok/s, model-FLOPs share 6 x {n_params} x "
-              f"{tok_s:.1f} / 989.4e12 = {6 * n_params * tok_s / PEAK_BF16_FLOPS:.6f}; "
+              f"{tok_s:.1f} / {PEAK_FLOPS / 1e12:.1f}e12 = {share:.6f}; "
               f"peak memory {peak:.3f} GiB; checkpoint step_{n_steps} {ckpt_bytes} B, "
               f"save {first['save_s']} s, restore {second['restore_s']:.4f} s; resumed "
               f"steps 3..{n_steps} max rel diff of loss and grad norm {worst:.3e} "
@@ -2707,7 +2894,6 @@ def main() -> int:
         fail("torch.cuda.is_available() is false; this run needs a card")
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
-    sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch.accel import Accelerator, CapacityPlan
     from repro_torch.core import (
@@ -3080,7 +3266,7 @@ def main() -> int:
             # the dense product: 2 operations per multiply-add
             bound(4 * (A2.numel() + lits_01.numel()
                        + A2.shape[0] * lits_01.shape[1]),
-                  2 * A2.numel() * lits_01.shape[1], PEAK_INT8_TC_OPS_PER_S),
+                  2 * A2.numel() * lits_01.shape[1], PEAK_INT8_OPS),
         ),
         "tm_interp": (
             lambda: tik.tm_interp(*ops_a, lits, m_cap=M_CAP, **host_table),
@@ -3187,10 +3373,14 @@ def main() -> int:
     fleet_phase(dev, cfg, served, models, X, oracles)
 
     # -- 3f. multi-device: clause_table, build_tm_sharded, the engines ---
-    sharded_row = sharded_phase(dev, cfg, served, models, X, oracles)
+    sharded_row, table_us = sharded_phase(dev, cfg, served, models, X, oracles)
 
     # -- 3g. the LM trunk: smoke archs, stablelm-3b at full width ----------
-    lm_phase(dev, card_identity())
+    lm = lm_phase(dev, card_identity())
+
+    # -- 3j. the dry run held against 3g's steps and 3f's clause_table ----
+    dryrun_phase(dev, card_identity(), lm, table_us)
+    del lm
 
     # -- 3h. the recurrent and encoder-decoder families -------------------
     recurrent_phase(dev, card_identity())

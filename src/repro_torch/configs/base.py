@@ -51,9 +51,11 @@ class ArchConfig:
     # training memory: gradient-accumulation microbatches (activation
     # footprint scales with global_batch / microbatches)
     train_microbatches: int = 1
-    # analysis: replace layer-stack scans with Python loops so XLA
-    # cost_analysis counts every layer (used by the dry-run's u=1/u=2
-    # variants; see analysis/corrections.py)
+    # analysis: in the reference, replace layer-stack scans with Python
+    # loops so XLA cost_analysis counts every layer.  The port's layer
+    # loops are Python loops already, so nothing reads it here; the dry
+    # run's u=1/u=2 variants (launch/dryrun.py ``_unit_variant``) set it
+    # so their configs equal the reference's field for field
     analysis_unroll: bool = False
 
     @property

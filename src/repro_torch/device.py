@@ -5,6 +5,10 @@ unless the caller asks for the CPU with ``device="cpu"``.  With no card
 and no explicit ``"cpu"`` they raise: the port never falls back to the
 CPU on its own, so a run that was meant for the card cannot silently
 measure the CPU instead.
+
+``"meta"`` (asked for by name only) is the dry run's device
+(``launch.dryrun``): shapes and dtypes without storage, so a full-width
+step is traced without placing anything anywhere.
 """
 
 from __future__ import annotations
@@ -14,8 +18,9 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> the current CUDA device (raises without one);
-    ``"cpu"`` / ``"cuda"`` / ``"cuda:N"`` / a ``torch.device`` -> itself,
-    with a CUDA index filled in.  Any other device type raises."""
+    ``"cpu"`` / ``"meta"`` / ``"cuda"`` / ``"cuda:N"`` / a ``torch.device``
+    -> itself, with a CUDA index filled in.  Any other device type
+    raises."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -24,11 +29,12 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
         raise ValueError(
-            f"unsupported device {dev}; the port runs on 'cuda' or 'cpu'"
+            f"unsupported device {dev}; the port runs on 'cuda' or 'cpu' "
+            "(or traces on 'meta')"
         )
     if not torch.cuda.is_available():
         raise RuntimeError(

@@ -18,8 +18,8 @@ Modules:
                  opt_config_for) on one device
 
 One process drives every device of a mesh; there is no
-``torch.distributed``.  The dry-run of the reference package is not
-here yet.
+``torch.distributed``.  ``tm_sharded.dryrun_tm`` is the TM path of the
+dry run (``launch.dryrun --include-tm``).
 """
 
 from .sharding import (
@@ -52,6 +52,7 @@ from .tm_sharded import (
     TM_CONFIGS,
     TMShardedConfig,
     build_tm_sharded,
+    dryrun_tm,
     fill_clause_tables,
     operands_from_plan,
 )
@@ -67,6 +68,7 @@ __all__ = [
     "batch_axes",
     "build_tm_sharded",
     "cache_shardings",
+    "dryrun_tm",
     "fill_clause_tables",
     "hint",
     "hint_spec",

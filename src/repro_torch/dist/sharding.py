@@ -49,7 +49,8 @@ while one is installed.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Sequence, Tuple
+import math
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -281,8 +282,11 @@ def map_leaves(fn: Callable, tree):
     return _map_with_path(lambda _, leaf: fn(leaf), tree)
 
 
-def _param_spec(cfg, mesh, path, leaf) -> PartitionSpec:
-    """One PartitionSpec per param leaf.
+def _param_rule(cfg, mesh, path, leaf) -> Tuple[PartitionSpec, str]:
+    """(PartitionSpec, pattern) of one param leaf; the pattern names the
+    rule that gave the spec ("vector", "embed", "router", "attn_dp",
+    "expert", "matrix") and decides its collectives
+    (``spec_collective_bytes``).
 
     Rules (checked in this order):
       * scalars / vectors (norm scales)            -> replicated
@@ -303,22 +307,22 @@ def _param_spec(cfg, mesh, path, leaf) -> PartitionSpec:
     spec = [None] * len(shape)
 
     if len(shape) <= 1:
-        return P()
+        return P(), "vector"
 
     if "embed" in names:
         if "model" in sizes and shape[0] % n_model == 0:
             spec[0] = "model"
         if cfg.fsdp and "data" in sizes and shape[1] % n_data == 0:
             spec[1] = "data"
-        return P(*spec)
+        return P(*spec), "embed"
 
     if "router" in names:
-        return P(*spec)
+        return P(*spec), "router"
 
     is_attn = any(n in ("attn", "wq", "wk", "wv", "wo", "self_attn",
                         "cross_attn") for n in names)
     if is_attn and not cfg.attn_tp:
-        return P(*spec)
+        return P(*spec), "attn_dp"
 
     is_expert = cfg.is_moe and any(
         n in ("w_gate", "w_up", "w_down") for n in names
@@ -328,7 +332,7 @@ def _param_spec(cfg, mesh, path, leaf) -> PartitionSpec:
         e_dim = 1 if len(shape) == 4 else 0
         if "model" in sizes and shape[e_dim] % n_model == 0:
             spec[e_dim] = "model"
-        return P(*spec)
+        return P(*spec), "expert"
 
     # generic matrix: dims after the leading stack dim are candidates;
     # for unstacked 2-D weights all dims are candidates.
@@ -343,14 +347,14 @@ def _param_spec(cfg, mesh, path, leaf) -> PartitionSpec:
             if spec[d] is None and shape[d] % n_data == 0:
                 spec[d] = "data"
                 break
-    return P(*spec)
+    return P(*spec), "matrix"
 
 
 def param_shardings(cfg, mesh, specs) -> Any:
     """Param-spec tree (or an ``LMParams``) -> a tree of ``NamedSharding``
     of the same structure (an ``LMParams`` as its dict)."""
     return _map_with_path(
-        lambda path, leaf: NamedSharding(mesh, _param_spec(cfg, mesh, path, leaf)),
+        lambda path, leaf: NamedSharding(mesh, _param_rule(cfg, mesh, path, leaf)[0]),
         specs,
     )
 
@@ -448,6 +452,113 @@ def cache_shardings(cfg, mesh, shape, c_specs) -> Any:
         return NamedSharding(mesh, P(*spec))
 
     return map_leaves(rule, c_specs)
+
+
+# ---------------------------------------------------------------------------
+# the collectives a step's shardings imply
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+# leading layer-stack dims of a parameter leaf, by its top-level key
+_STACK_DIMS = {"layers": 1, "pairs": 1, "encoder": 1, "decoder": 1, "mamba": 2}
+_TRAIN_PASSES = 3  # forward, the checkpointed layer's recompute, backward
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_collective_bytes(cfg, shape, mesh, specs) -> Dict[str, float]:
+    """Per-device collective operand bytes of one step, per kind of
+    ``COLLECTIVE_KINDS``, from the spec and pattern ``_param_rule`` gives
+    each parameter leaf (the port has no post-partitioning HLO).
+
+    ``specs`` holds the step's spec trees: ``"params"`` (the family's
+    ``param_specs``) and ``"inputs"`` (``input_specs``, sharded by
+    ``input_shardings``).  Weights are ``[..., in, out]``; a leaf under
+    ``layers``, ``pairs``, ``encoder`` or ``decoder`` has one leading
+    stack dim, under ``mamba`` two; the ``shared`` block is applied once
+    per group.  One rule per sharding pattern, per leaf:
+
+    * a dim over ``data`` (FSDP, patterns "embed" and "matrix"): an
+      all-gather of the leaf's shard before each use -- once per step,
+      and in a train step once per microbatch in the forward and again in
+      the checkpointed recompute -- and in a train step a reduce-scatter
+      of its gradient (operand: the leaf sharded over its other axes)
+      once per microbatch;
+    * the contraction dim (``-2``) over ``model`` (a row-parallel
+      product; the embedding's vocab, whose lookup sums partial rows):
+      an all-reduce over ``model`` of the product's output, tokens of
+      the device's batch shard x the output features, in the leaf's
+      dtype; a train step pays it in the forward, the recompute and the
+      backward (Megatron's pair of all-reduces per parallel block);
+    * pattern "expert" with its expert dim over ``model`` (the EP MoE,
+      ``models.moe.moe_ffn_ep``): the ``psum`` over ``model`` of each
+      MoE layer's output ``[tokens, D]`` (counted on ``w_down``), as
+      often as the previous rule;
+    * in a train step, the gradient of every leaf all-reduced over the
+      batch axes its spec does not shard (data parallelism), once per
+      microbatch (after the reduce-scatter for an FSDP leaf).
+
+    Tokens are ``global_batch x seq_len`` (``global_batch`` in decode),
+    ``encoder_len`` per sequence for Whisper's encoder and cross-attention
+    keys and values (not run in decode), ``n_patches`` for the VLM's
+    patch projection, over the batch shards.  A replicated leaf
+    ("vector", "router", "attn_dp"), a column-parallel product (output
+    features over ``model``) and the optimizer update (sharded like the
+    params) cost nothing here; so do the scalar reductions of the loss
+    and the gradient norm, and any axis of size 1.  It is an estimate of
+    what GSPMD emits, not a count of a compiled program: no all-to-all or
+    collective-permute is modelled."""
+    from ..tree import flatten
+
+    sizes = _axis_sizes(mesh)
+    train = shape.kind == "train"
+    mb = max(int(getattr(cfg, "train_microbatches", 1)), 1) if train else 1
+    passes = _TRAIN_PASSES if train else 1
+    B = shape.global_batch
+    in_sh = flatten(input_shardings(cfg, mesh, shape, specs["inputs"]))
+    b_axes = next((_axes(s.spec[0]) for _, s in in_sh if len(s.spec) and s.spec[0]), ())
+    n_batch = math.prod(sizes[a] for a in b_axes)
+    b_axes = [a for a in b_axes if sizes[a] > 1]
+    groups = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 1
+
+    def tokens(path) -> float:
+        top = path.split(".")[0]
+        cross = top == "encoder" or "cross_attn.wk" in path or "cross_attn.wv" in path
+        if shape.kind == "decode":
+            return 0.0 if cross else B / n_batch
+        if cross:
+            return B * cfg.encoder_len / n_batch
+        if top == "patch_proj":
+            return B * cfg.n_patches / n_batch
+        return B * shape.seq_len / n_batch
+
+    out = {k: 0.0 for k in COLLECTIVE_KINDS}
+    for path, leaf in flatten(specs["params"]):
+        spec, pattern = _param_rule(cfg, mesh, tuple(path.split(".")), leaf)
+        names = [a for e in spec for a in _axes(e)]
+        itemsize = leaf.element_size()
+        shard = leaf.numel() * itemsize / math.prod(sizes[a] for a in names)
+        names = [a for a in names if sizes[a] > 1]  # an axis of one moves nothing
+        top = path.split(".")[0]
+        n_stack = _STACK_DIMS.get(top, 0)
+        apps = math.prod(leaf.shape[:n_stack]) * (groups if top == "shared" else 1)
+        body = leaf.shape[n_stack:]
+        if "data" in names:
+            out["all-gather"] += shard * (2 * mb if train else 1)
+            if train:
+                out["reduce-scatter"] += shard * sizes["data"] * mb
+        if pattern == "expert":
+            if path.endswith("w_down") and "model" in names:
+                out["all-reduce"] += tokens(path) * body[-1] * itemsize * apps * passes
+        elif len(body) >= 2 and "model" in names and "model" in _axes(spec[-2]):
+            per_token = math.prod(body) // body[-2]
+            out["all-reduce"] += tokens(path) * per_token * itemsize * apps * passes
+        if train and [a for a in b_axes if a not in names]:
+            out["all-reduce"] += shard * mb
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -29,14 +29,18 @@ PyTorch, equal to the reference's on the same operands:
                                    AND over each row's slots
                                    (``kernels.clause_table.ref``)
 
-``dryrun_tm`` (lower + roofline on the production mesh) belongs to the LM
-scaffolding and is not here.
+``dryrun_tm`` is the ``--include-tm`` path of ``launch.dryrun``: the
+roofline of the executor on the production mesh, from the config's
+capacities (no trace: its work is integer ANDs, which
+``FlopCounterMode`` does not count).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
+from pathlib import Path
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -375,6 +379,60 @@ def operands_from_plan(cfg: TMShardedConfig, plan, X, mesh):
     return torch.from_numpy(idx).to(dev), torch.from_numpy(pol).to(dev), lits1
 
 
+def dryrun_tm(name: str, *, multi_pod: bool = False, out_dir=None, mesh=None,
+              mesh_name: str = None) -> dict:
+    """The roofline record of ``TM_CONFIGS[name]`` on the production mesh
+    (or ``mesh``, named ``mesh_name``), written to ``out_dir`` as
+    ``<name>_<mesh>.json`` when given.  The counts come from the config's
+    capacities, not a trace (``FlopCounterMode`` counts 0 for AND and
+    popcount); per device they are the global count over the chips.
+
+    Work: the clause-major executor's integer operations at capacity, as
+    the reference's gather + AND-reduce performs them -- every slot of
+    every clause row ANDed once per 32-datapoint word (``Mp x C x lc_cap
+    x ceil(B/32)``), then per (clause, datapoint) the bit's unpack, the
+    polarity product and the class sum (``3 x Mp x C x B``), priced at
+    ``PEAK_FP32_FLOPS`` (no int32 rate is published; this one is the
+    highest candidate).  A kernel that skips padded slots or stops a row
+    once its AND is zero (``clause_table``) needs less, so ``t_compute``
+    is the executor's cost when the tables fill, not a lower bound for
+    every input.  Bytes: the executor's operands read once and its sums
+    written once -- the clause tables ``int32[Mp, C, lc_cap]`` and
+    ``int32[Mp, C]``, the literals packed to 32-bit words with their
+    all-ones row ``int32[2F+1, B/32]``, the sums ``int32[B, Mp]`` --
+    which every executor moves, so ``t_memory`` is a lower bound.  No
+    collective: each tile writes a disjoint block.  Useful work, as the
+    reference: ``2 x includes x batch`` with ``includes = n_classes x
+    n_clauses x lc_cap``, bit operations per datapoint (one integer AND
+    does 32 of them), so ``peak_fraction`` can exceed 1."""
+    from ..analysis.roofline import PEAK_FP32_FLOPS, build_roofline
+    from ..launch.mesh import make_production_mesh
+
+    cfg = TM_CONFIGS[name]
+    if mesh is None:
+        mesh = make_production_mesh(multi_pod=multi_pod, devices="meta")
+        mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
+    chips = mesh.size
+    Mp = _pad_to(cfg.n_classes, _axis_sizes(mesh).get("model", 1))
+    C, Lc, B = cfg.n_clauses, cfg.lc_cap, cfg.batch
+    W = -(-B // 32)
+    flops = float(Mp * C * Lc * W + 3 * Mp * C * B)
+    nbytes = float(4 * (Mp * C * Lc + Mp * C + (2 * cfg.n_features + 1) * W + B * Mp))
+    includes = cfg.n_classes * cfg.n_clauses * cfg.lc_cap
+    mf = 2.0 * includes * cfg.batch
+    rl = build_roofline(
+        arch=name, shape=f"batch{cfg.batch}", mesh_name=mesh_name, chips=chips,
+        cost={"flops": flops / chips, "bytes accessed": nbytes / chips},
+        collectives={}, model_flops_global=mf, peak_flops=PEAK_FP32_FLOPS,
+    )
+    rec = json.loads(rl.to_json())
+    if out_dir is not None:
+        out_dir = Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"{name}_{mesh_name}.json").write_text(json.dumps(rec, indent=1))
+    return rec
+
+
 __all__ = [
     "CHUNK",
     "OperandSpec",
@@ -382,6 +440,7 @@ __all__ = [
     "TMShardedFn",
     "TM_CONFIGS",
     "build_tm_sharded",
+    "dryrun_tm",
     "fill_clause_tables",
     "operands_from_plan",
 ]

@@ -80,7 +80,9 @@ def test_make_mesh_places_devices_and_refuses_bad_grids():
     with pytest.raises(ValueError, match="repeat"):
         shd.make_mesh((2, 2), ("model", "model"), devices="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
-        shd.make_mesh((1, 1), devices="meta")
+        shd.make_mesh((1, 1), devices="mps")
+    # the dry run's mesh: spec arithmetic on the meta device, asked by name
+    assert shd.make_mesh((2, 2), devices="meta").first_device == torch.device("meta")
 
 
 def test_make_mesh_without_devices_sits_on_the_card():

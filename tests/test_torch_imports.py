@@ -4,7 +4,9 @@ packages ``tm_popcount``, ``tm_interp``, ``clause_eval``,
 ``clause_matmul``, ``tm_train``, ``interp_stream`` and ``clause_table``,
 ``prune``, ``data``, ``dist``, ``core.runtime`` and the LM modules
 ``configs``, ``optim``, ``models``, ``launch.serve``, ``launch.train``,
-``launch.mesh`` and ``runtime_ft.elastic`` among them,
+``launch.mesh``, ``runtime_ft.elastic`` and the dry run's
+``analysis.roofline``, ``analysis.corrections``, ``analysis.report`` and
+``launch.dryrun`` among them,
 imports without ``nvcc``);
 its entry points refuse to run without a CUDA card unless
 ``device="cpu"`` is asked for; the kernel wrappers send a CUDA tensor to
@@ -52,7 +54,9 @@ MODULES = ["repro_torch.core.runtime", "repro_torch.core.interp",
            "repro_torch.models.encdec", "repro_torch.models.api",
            "repro_torch.launch.serve", "repro_torch.convert",
            "repro_torch.launch.train", "repro_torch.launch.mesh",
-           "repro_torch.runtime_ft.elastic"]
+           "repro_torch.runtime_ft.elastic", "repro_torch.analysis.roofline",
+           "repro_torch.analysis.corrections", "repro_torch.analysis.report",
+           "repro_torch.launch.dryrun"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -183,8 +187,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(entry):
 
 def test_resolve_device_rejects_other_devices():
     assert resolve_device("cpu") == torch.device("cpu")
+    # the dry run's device, only when asked for by name
+    assert resolve_device("meta") == torch.device("meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        resolve_device("meta")
+        resolve_device("mps")
 
 
 def _operands(device):

@@ -361,7 +361,7 @@ def test_server_with_a_mesh_matches_the_reference_server():
     assert shd.activation_mesh() is mesh and server.mesh is mesh
     server.load_weights(lm_params_from_numpy(cfg, tree, device="cpu"))
     assert np.array_equal(server.generate(prompts, 6), want)
-    with pytest.raises(ValueError, match="unsupported device meta"):
+    with pytest.raises(ValueError, match="the mesh's tiles are on meta, the server on cpu"):
         Server(cfg, shd.Mesh(np.full((1, 1), torch.device("meta"), object),
                              ("data", "model")), batch=2, prompt_cap=8, device="cpu")
 
