@@ -175,6 +175,18 @@ features, ~17k includes, 8192 datapoints per flush) it
      the ratio to the capacity bound printed beside); and ``python -m
      repro_torch.launch.dryrun --arch stablelm-3b --shape train_4k``
      (pod16x16, full width) runs in a process that sees no card, timed;
+  3k. the LM train path on a rank mesh (``rank_phase``, after 3i; no
+     kernel of its own: NCCL's collectives where the reference has
+     GSPMD's): ``torch.cuda.device_count()`` processes, one per card,
+     under NCCL (``launch.mesh.init_distributed``), each running
+     ``repro_torch.launch.train.main`` on an (N, 1) rank mesh (also
+     (2, 2) where there are four cards; otherwise a line says no
+     multi-card mesh was available) at 3g's arch and shape (stablelm-3b,
+     B = 4, S = 4,096, bf16, seed-0 weights, the same batches): three
+     steps whose losses and grad norms equal 3g's one-device steps
+     within ``LM_TOL``, step ms (slowest rank), peak memory, and the
+     last step profiled (idle share, top device operations, collective
+     bytes per kind);
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
@@ -1842,7 +1854,8 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
     ``scaled_dot_product_attention``; and the serving CLI.  ``card``
     (name, power limit) goes on every line with a number.  Returns
     ``arch``'s params (after the train steps) and the shapes and median
-    ms of its prefill and train step, for phase 3j."""
+    ms of its prefill and train step, for phase 3j, and the train steps'
+    (loss, grad norm) and peak memory, for phase 3k."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1991,12 +2004,13 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
     state = adamw.init(opt, params)
     step = make_train_step(cfg, opt, microbatches=mb, device=dev)
     stream = TokenStream(TokenStreamConfig(cfg.vocab, St, Bt, seed=0))
-    step_ms = []
+    step_ms, train_metrics = [], []
     for _ in range(3):
         batch = stream.next_batch()
         (params, state, m), ms = events_ms(lambda: step(params, state, batch))
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         step_ms.append(ms)
+        train_metrics.append((loss, gnorm))
         print(f"lm 3g train {arch}: step {int(state.step)} loss {loss:.6f} grad_norm "
               f"{gnorm:.6f} in {ms:.3f} ms [{card}]")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
@@ -2072,7 +2086,8 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
     torch.cuda.empty_cache()
     print(f"lm 3g: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
     return {"arch": arch, "params": params, "prefill": (B, server_cap),
-            "prefill_ms": p_ms, "train": (Bt, St), "train_ms": s_ms}
+            "prefill_ms": p_ms, "train": (Bt, St), "train_ms": s_ms,
+            "train_metrics": train_metrics, "train_peak_gib": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -2886,6 +2901,138 @@ def mesh_phase(dev, card, moe_arch="moonshot-v1-16b-a3b", moe_x=(4, 1024),
     print(f"lm 3i: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 3k: the LM train path on a rank mesh (no kernel of its own: NCCL's
+# collectives in the role of the reference's GSPMD collectives)
+# ---------------------------------------------------------------------------
+
+def _rank_worker(rank, world, store, argv, out_dir, device=None):
+    """One rank of phase 3k: ``launch.train.main(argv)`` on this rank's
+    card under NCCL (``device=None``; ``"cpu"`` rehearses it under gloo),
+    its last step profiled; rank 0 writes the record."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import init_distributed
+
+    t0 = time.perf_counter()
+    info = init_distributed(device, init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout_s=600)
+    t_init = time.perf_counter() - t0
+    card = device is None
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    last = int(argv[argv.index("--steps") + 1])
+    # device activity only, summed from the raw events (see raw_profile)
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) \
+        if card else None
+    span = {"wall_us": 0.0}
+
+    def on_step(step, record):  # profile the last step: from the one before
+        if prof is None:
+            return
+        if step == last - 1:
+            sync()
+            prof.__enter__()
+            span["t0"] = time.perf_counter()
+        elif step == last:
+            sync()
+            span["wall_us"] = (time.perf_counter() - span["t0"]) * 1e6
+            prof.__exit__(None, None, None)
+
+    t0 = time.perf_counter()
+    rec = launch_train.main(argv + (["--device", device] if device else []),
+                            on_step=on_step)
+    t_main = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if card else 0.0
+    names = {}
+    if prof is not None:
+        cuda = torch.autograd.DeviceType.CUDA
+        for ev in prof.profiler.kineto_results.events():
+            if ev.device_type() == cuda:
+                us, n = names.get(ev.name(), (0.0, 0))
+                names[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    top = sorted(((us, key[:80], n) for key, (us, n) in names.items()), reverse=True)
+    out = {"metrics": rec["metrics"], "step_s": rec["step_s"],
+           "collectives": rec["collectives"], "peak_gib": peak,
+           "busy_us": sum(us for us, _ in names.values()),
+           "launches": sum(n for _, n in names.values()),
+           "wall_us": span["wall_us"], "top": top[:5],
+           "device": str(info["device"]), "backend": info["backend"],
+           "init_s": t_init, "main_s": t_main}
+    if rank == 0:
+        Path(out_dir, "rank0.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+
+
+def rank_phase(dev, card, one_device, steps=3, timeout_s=600):
+    """Phase 3k: ``launch.train.main`` on a rank mesh of one process per
+    card under NCCL (``torch.cuda.device_count()`` ranks, a (N, 1) mesh;
+    also (2, 2) where there are four cards) at ``one_device``'s arch and
+    (batch, seq) from random weights (seed 0): the same params and
+    batches as phase 3g's one-device steps, so its losses and gradient
+    norms must equal 3g's within ``LM_TOL``.  Prints step ms, peak GiB and
+    the idle share of the last (profiled) step beside 3g's."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    arch, (B, S) = one_device["arch"], one_device["train"]
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    meshes = [(n, 1)] + ([(2, 2)] if n >= 4 else [])
+    if n < 4:
+        print(f"lm 3k: no multi-card mesh was available ({n} card(s) here): the rank "
+              f"mesh is (1, 1), one NCCL rank; no multi-card time is measured [{card}]")
+    torch.cuda.empty_cache()
+    want = one_device["train_metrics"][:steps]
+    for shape in meshes:
+        world = shape[0] * shape[1]
+        argv = ["--arch", arch, "--mesh", f"{shape[0]}x{shape[1]}", "--batch", str(B),
+                "--seq", str(S), "--steps", str(steps), "--log-every", "1"]
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_3k_"))
+        try:
+            ctx = mp.spawn(_rank_worker, nprocs=world, join=False, args=(
+                world, str(tmp / "store"), argv, str(tmp),
+                "cpu" if dev.type == "cpu" else None))
+            deadline = time.perf_counter() + timeout_s
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    fail(f"3k: the ranks of mesh {shape} did not finish in {timeout_s} s")
+            rec = json.loads((tmp / "rank0.json").read_text())
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        got = [tuple(rec["metrics"][str(s_)]) for s_ in range(1, steps + 1)]
+        errs = [max(abs(a - b) for a, b in zip(g, w)) for g, w in zip(got, want)]
+        step_ms = {int(k): v * 1e3 for k, v in rec["step_s"].items()}
+        idle = 1 - rec["busy_us"] / rec["wall_us"] if rec["wall_us"] else float("nan")
+        moved = rec["collectives"][str(steps)]
+        print(f"lm 3k train {arch} mesh {shape} ({world} {rec['backend']} rank(s), one per "
+              f"device; rank 0 on {rec['device']}): "
+              f"B={B} S={S}, (loss, grad_norm) per step {got} against 3g's one-device "
+              f"{want}: max abs err {max(errs):.3e} (tolerance {LM_TOL}) [{card}]")
+        print(f"lm 3k train {arch} mesh {shape}: step ms (host clock to the loss read, "
+              f"slowest rank) {[round(step_ms[s_], 3) for s_ in sorted(step_ms)]} against "
+              f"3g's one-device {one_device['train_ms']:.3f} ms (median, CUDA events); "
+              f"peak memory {rec['peak_gib']:.3f} GiB (3g: "
+              f"{one_device['train_peak_gib']:.3f}); last step profiled: wall "
+              f"{rec['wall_us']:.1f} us, device busy {rec['busy_us']:.1f} us in "
+              f"{rec['launches']} device operations (idle share {idle:.3f}); collectives "
+              f"of the last step on rank 0 (bytes) {moved}; process group up in "
+              f"{rec['init_s']:.1f} s, main {rec['main_s']:.1f} s [{card}]")
+        for us, key, count in rec["top"]:
+            print(f"profile 3k train step {shape}: {us:.1f} us  x{count}  {key} [{card}]")
+        if not all(np.isfinite(v) for m in got for v in m) or not max(errs) <= LM_TOL:
+            fail(f"3k: the rank mesh {shape} differs from 3g's one-device steps: "
+                 f"{got} vs {want}")
+    print(f"lm 3k: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3380,6 +3527,8 @@ def main() -> int:
 
     # -- 3j. the dry run held against 3g's steps and 3f's clause_table ----
     dryrun_phase(dev, card_identity(), lm, table_us)
+    one_device = {k: lm[k] for k in ("arch", "train", "train_ms", "train_metrics",
+                                     "train_peak_gib")}
     del lm
 
     # -- 3h. the recurrent and encoder-decoder families -------------------
@@ -3387,6 +3536,9 @@ def main() -> int:
 
     # -- 3i. the LM on a mesh: EP MoE, moonshot served, launch.train -------
     mesh_phase(dev, card_identity())
+
+    # -- 3k. the LM train path on a rank mesh: one process per card -------
+    rank_phase(dev, card_identity(), one_device)
 
     # -- 4. timings --------------------------------------------------------
     def kernel_bound(ops, packed):

@@ -27,9 +27,20 @@ a ``V2`` array, ``"bfloat16"`` in the manifest.  The port reads such a
 leaf back as bf16 (the reference's ``restore`` cannot: ``jnp.asarray``
 refuses the ``V2`` array).
 
+Under a ``torch.distributed`` process group of more than one rank,
+``save`` is collective: every rank calls it with its own tree, each
+``DTensor`` leaf (a block of a rank mesh) is all-gathered into its whole
+logical array, rank 0 writes the reference's layout (whole leaves, the
+same manifest and names) and publishes it by the atomic rename, and
+every rank waits on a barrier before returning, so ``latest_step`` on
+any rank sees the step once ``save`` returns.  ``save_async`` is then
+the same collective save, finished before it returns.
+
 ``restore(step, like)`` places each leaf on the device of ``like``'s
 matching leaf, or, given ``shardings``, where its ``NamedSharding``
-places it (``dist.sharding.place``), in ``like``'s leaf dtype.  The
+places it (``dist.sharding.place``), in ``like``'s leaf dtype.  On a
+rank mesh each rank reads only its block of each file (a memory map)
+and gets it as a ``DTensor``.  The
 reference keeps the saved dtype; the port casts, so that a reference PRNG
 key saved as uint32 words restores as the port's int64 key words
 (``convert.key_from_numpy``).  A value that does not survive the cast
@@ -153,6 +164,11 @@ def _restore_leaf(arr: np.ndarray, dtype: str, like, name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _world() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 class CheckpointManager:
     def __init__(self, directory: str | Path, keep_last: int = 3):
         self.dir = Path(directory)
@@ -162,24 +178,36 @@ class CheckpointManager:
     # -- save ----------------------------------------------------------------
 
     def save(self, step: int, tree: Any) -> Path:
+        from ..dist.collectives import gather_full
+        from ..dist.sharding import _is_dtensor
+
         names, leaves = _flatten_with_names(tree)
+        ranked = _world() > 1
+        writer = not ranked or torch.distributed.get_rank() == 0
         tmp = self.dir / f"step_{step}.tmp"
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
+        final = self.dir / f"step_{step}"
+        if writer:
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir(parents=True)
         manifest = {"step": step, "leaves": []}
         for i, (name, leaf) in enumerate(zip(names, leaves)):
-            arr, dtype = _to_numpy(leaf)
-            np.save(tmp / f"leaf_{i}.npy", arr)
-            manifest["leaves"].append(
-                {"name": name, "shape": list(arr.shape), "dtype": dtype}
-            )
-        (tmp / "manifest.json").write_text(json.dumps(manifest))
-        final = self.dir / f"step_{step}"
-        if final.exists():
-            shutil.rmtree(final)
-        tmp.rename(final)  # atomic publish
-        self._gc()
+            if _is_dtensor(leaf):
+                leaf = gather_full(leaf)  # collective: every rank takes part
+            if writer:
+                arr, dtype = _to_numpy(leaf)
+                np.save(tmp / f"leaf_{i}.npy", arr)
+                manifest["leaves"].append(
+                    {"name": name, "shape": list(arr.shape), "dtype": dtype}
+                )
+        if writer:
+            (tmp / "manifest.json").write_text(json.dumps(manifest))
+            if final.exists():
+                shutil.rmtree(final)
+            tmp.rename(final)  # atomic publish
+            self._gc()
+        if ranked:
+            torch.distributed.barrier()
         return final
 
     def save_async(self, step: int, tree: Any):
@@ -187,7 +215,14 @@ class CheckpointManager:
         copy even of a host tensor, so an in-place update after this call
         does not reach the checkpoint), then writes in a background
         thread (the atomic rename publishes only when complete).  Returns
-        the Thread (join() to flush)."""
+        the Thread (join() to flush).  Under a process group of more
+        than one rank it is the collective ``save``, done before it
+        returns (the Thread has nothing left to do)."""
+        if _world() > 1:
+            self.save(step, tree)
+            t = threading.Thread(target=lambda: None, daemon=True)
+            t.start()
+            return t
         host_tree = _map(
             lambda x: x.detach().to("cpu", copy=True)
             if isinstance(x, torch.Tensor) else np.asarray(x),
@@ -235,7 +270,7 @@ class CheckpointManager:
                     f"shardings has {len(sh_leaves)} leaves for {len(names)} "
                     "leaves of like"
                 )
-        from ..dist.sharding import place
+        from ..dist.sharding import _check_spec, from_block, local_slices, place
 
         out = []
         for i, (name, rec) in enumerate(zip(names, manifest["leaves"])):
@@ -243,10 +278,20 @@ class CheckpointManager:
                 raise AssertionError(
                     f"leaf order mismatch: {name} != {rec['name']}"
                 )
+            sh = sh_leaves[i]
+            if sh is not None and getattr(sh.mesh, "distributed", False):
+                # this rank's block only, read through a memory map
+                arr = np.load(src / f"leaf_{i}.npy", mmap_mode="r")
+                _check_spec(arr.shape, sh.spec, sh.mesh, name)
+                # a copy: a tensor over the read-only map would fault on write
+                block = np.array(arr[local_slices(arr.shape, sh.spec, sh.mesh)], copy=True)
+                t = _restore_leaf(block, rec["dtype"], likes[i], name)
+                out.append(from_block(t.to(sh.mesh.device), sh, arr.shape))
+                continue
             arr = np.load(src / f"leaf_{i}.npy")
             t = _restore_leaf(arr, rec["dtype"], likes[i], name)
-            if sh_leaves[i] is not None:
-                t = place(t, sh_leaves[i], name)
+            if sh is not None:
+                t = place(t, sh, name)
             elif isinstance(likes[i], torch.Tensor):
                 t = t.to(likes[i].device)
             out.append(t)

@@ -69,17 +69,72 @@ def batch_to_device(batch: Dict[str, np.ndarray], device=None) -> Dict[str, torc
     return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
 
 
-def shard_batch(batch: Dict[str, np.ndarray], mesh, shardings) -> Dict[str, torch.Tensor]:
+def batch_rows(mesh, B: int, microbatches: int = 1):
+    """-> (the mesh axes a ``B``-row batch's rows split over, this rank's
+    global row indices) on a rank mesh, in the reference's microbatch
+    layout.
+
+    The reference's step splits the *global* batch into ``microbatches``
+    pieces of ``b = B / microbatches`` rows and each piece over the batch
+    axes (``batch_axes(mesh, b)``, ``n`` shards).  Shard ``k`` (its index
+    major-to-minor over those axes) therefore computes rows ``i*b + k*b/n
+    ... i*b + (k+1)*b/n - 1`` of microbatch ``i``, not one contiguous
+    block of the batch; its rows are listed microbatch by microbatch, so
+    that splitting them into ``microbatches`` equal pieces gives it its
+    rows of each microbatch.  A piece the batch axes do not divide stays
+    whole on every rank (replicated), as the reference leaves it."""
+    from ..dist.sharding import _axis_sizes, batch_axes
+
+    if B % microbatches:
+        raise ValueError(f"global batch {B} not divisible by "
+                         f"train_microbatches={microbatches}")
+    b = B // microbatches
+    axes = batch_axes(mesh, b) or ()
+    sizes, coords = _axis_sizes(mesh), mesh.coords
+    k, n = 0, 1
+    for a in axes:
+        k = k * sizes[a] + coords[a]
+        n *= sizes[a]
+    per = b // n
+    rows = np.concatenate([np.arange(i * b + k * per, i * b + (k + 1) * per)
+                           for i in range(microbatches)])
+    return axes, rows
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh, shardings,
+                microbatches: int = 1) -> Dict[str, torch.Tensor]:
     """A numpy batch -> tensors placed by ``shardings`` (a dict of
     ``NamedSharding`` with the batch's keys, e.g. ``input_shardings``) on
-    ``mesh``: each whole array on the mesh's device
-    (``dist.sharding.place``)."""
-    from ..dist.sharding import place
+    ``mesh``.
+
+    On a logical mesh each whole array goes on the mesh's device
+    (``dist.sharding.place``; ``microbatches`` plays no part).  On a rank
+    mesh each batch-leading array becomes this rank's rows only
+    (``batch_rows``: the reference's rows of each of the step's
+    ``microbatches``), a ``DTensor`` of the batch's global shape placed
+    ``Shard(0)`` over the axes the rows split over (with one microbatch
+    its logical array is the batch itself; with several, the batch with
+    its rows grouped by shard, each shard's rows microbatch by
+    microbatch).  Other arrays are replicated."""
+    from ..dist.sharding import NamedSharding, P, from_block, place
 
     for k, sh in shardings.items():
         if sh.mesh is not mesh:
             raise ValueError(f"input {k!r}: its sharding is on another mesh")
-    return {k: place(batch[k], shardings[k], k) for k in sorted(batch)}
+    if not getattr(mesh, "distributed", False):
+        return {k: place(batch[k], shardings[k], k) for k in sorted(batch)}
+    B = next(np.asarray(v).shape[0] for v in batch.values())
+    axes, rows = batch_rows(mesh, B, microbatches)
+    out = {}
+    for k in sorted(batch):
+        arr = np.asarray(batch[k])
+        if arr.ndim and arr.shape[0] == B:
+            sh = NamedSharding(mesh, P(axes or None, *([None] * (arr.ndim - 1))))
+            block = torch.from_numpy(np.ascontiguousarray(arr[rows])).to(mesh.device)
+            out[k] = from_block(block, sh, arr.shape)
+        else:
+            out[k] = place(arr, NamedSharding(mesh, P()), k)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

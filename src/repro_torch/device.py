@@ -9,15 +9,23 @@ measure the CPU instead.
 ``"meta"`` (asked for by name only) is the dry run's device
 (``launch.dryrun``): shapes and dtypes without storage, so a full-width
 step is traced without placing anything anywhere.
+
+Under an initialised ``torch.distributed`` process group (one process
+per card, ``launch.mesh.init_distributed``), the default is this rank's
+card: ``cuda:{LOCAL_RANK}``, the card ``init_distributed`` made current.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> the current CUDA device (raises without one);
+    """``None`` -> the current CUDA device, or this rank's card
+    (``LOCAL_RANK``) under an initialised process group (raises without
+    a card);
     ``"cpu"`` / ``"meta"`` / ``"cuda"`` / ``"cuda:N"`` / a ``torch.device``
     -> itself, with a CUDA index filled in.  Any other device type
     raises."""
@@ -27,6 +35,10 @@ def resolve_device(device=None) -> torch.device:
                 "no CUDA device is available; pass device='cpu' to run the "
                 "port on the CPU"
             )
+        if torch.distributed.is_available() and torch.distributed.is_initialized():
+            local = os.environ.get("LOCAL_RANK")
+            if local is not None:
+                return torch.device("cuda", int(local))
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
     if dev.type in ("cpu", "meta"):

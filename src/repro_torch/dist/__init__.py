@@ -3,21 +3,30 @@ multi-core compressed-TM executor on a mesh, the class-sharded TM train
 step, the LM's sharding rules and the LM step builders.
 
 Modules:
-  sharding.py    the port's ``Mesh`` (``make_mesh``), the batch-axis
-                 rule (``batch_axes``), the LM's sharding rules
-                 (``param_shardings``, ``opt_shardings``,
+  sharding.py    the port's ``Mesh`` (``make_mesh``: a logical mesh one
+                 process drives, or a rank mesh of one process per
+                 device), the batch-axis rule (``batch_axes``), the LM's
+                 sharding rules (``param_shardings``, ``opt_shardings``,
                  ``input_shardings``, ``cache_shardings``, ``hint``) as
                  ``PartitionSpec`` data, the activation mesh, and
-                 ``place`` (a tensor whole on the mesh's one device)
+                 ``place`` (a tensor whole on a logical mesh's one
+                 device; a rank's ``DTensor`` block on a rank mesh)
+  collectives.py the LM's collectives on a rank mesh over
+                 ``torch.distributed`` (per-axis all-gather,
+                 reduce-scatter, all-reduce with a byte log; a rank's
+                 parameter block gathered where it is used; the MoE's
+                 ``model`` region)
   tm_sharded.py  class-parallel x batch-parallel compressed-TM executor
                  (the Fig-7 multi-core split), its tiles on the
                  hand-written ``clause_table`` kernel
   steps.py       make_tm_train_step, the class-sharded TM feedback step
                  the recal worker scales out with; the LM steps
                  (make_train_step, make_prefill_step, make_decode_step,
-                 opt_config_for) on one device
+                 opt_config_for) on one device, and the train step of
+                 one rank of a rank mesh
 
-One process drives every device of a mesh; there is no
+The TM paths and serving run on logical meshes (one process drives
+every device); the LM train step also runs on a rank mesh under
 ``torch.distributed``.  ``tm_sharded.dryrun_tm`` is the TM path of the
 dry run (``launch.dryrun --include-tm``).
 """

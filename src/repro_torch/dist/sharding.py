@@ -4,20 +4,25 @@ optimizer state, activations, inputs and KV caches are laid out on a
 mesh.
 
 A ``Mesh`` is a grid of ``torch.device``s with named axes (``data``,
-``model``, optionally ``pod``).  One process drives every device of it:
-the class x batch split of the TM executor and train step needs no
-collective for serving and only a sum of integer deltas for training,
-and the expert-parallel MoE sums its tiles' partial outputs on the first
-device, so there is no ``torch.distributed`` here.
+``model``, optionally ``pod``).  It comes in two kinds, chosen
+explicitly when it is made:
 
-A device may appear more than once in the grid.  Torch has one CPU
-device, so a (2, 2) mesh on the CPU is four tiles of that one device
-(the counterpart of the reference tests' forced host devices); on a
-single card the same logical mesh runs the class and batch split on
-that card.
+* a **logical mesh** (``make_mesh(shape)``): one process drives every
+  tile.  A device may appear more than once in the grid: torch has one
+  CPU device, so a (2, 2) mesh on the CPU is four tiles of that one
+  device (the counterpart of the reference tests' forced host devices),
+  and on a single card the same mesh runs the TM's class and batch split
+  on that card.  The TM executor and train step and the one-process
+  expert-parallel MoE run their tiles one after another here.
+* a **rank mesh** (``make_mesh(shape, distributed=True)``): one process
+  per tile under ``torch.distributed`` (``launch.mesh.init_distributed``:
+  NCCL on the cards, gloo when the CPU is asked for), backed by a
+  ``DeviceMesh`` whose dim names are the axis names, ranks in row-major
+  order.  The world size must equal the mesh's size.
 
-    mesh = make_mesh((2, 2))                  # the card(s); raises without one
-    mesh = make_mesh((2, 2), devices="cpu")   # four tiles of the CPU
+    mesh = make_mesh((2, 2))                          # the card(s); raises without one
+    mesh = make_mesh((2, 2), devices="cpu")           # four tiles of the CPU
+    mesh = make_mesh((2, 2), distributed=True)        # four ranks, one card each
 
 The rules keep the reference's semantics entry for entry.  The batch dim
 shards over every non-``model`` axis that divides it (``batch_axes``);
@@ -29,21 +34,37 @@ mesh.  A ``PartitionSpec`` is a tuple with one entry per leading dim:
 as the name, as ``jax.sharding.PartitionSpec`` stores it), and a
 ``NamedSharding`` pairs it with its mesh.
 
-What a sharding places where.  A spec is data: it says how the
-reference would lay a tensor out, and the port keeps the whole logical
-tensor (GSPMD's logical array, so no value changes).  ``place`` (used by
+What a sharding places where (``place``, used by
 ``data.pipeline.shard_batch``, ``CheckpointManager.restore(shardings=)``,
-``runtime_ft.elastic.reshard_state`` and ``launch.train``) puts it on the
-mesh's device when every tile of the mesh is one device -- the logical
-meshes of one card, and every CPU mesh.  A mesh whose tiles lie on
-different cards raises ``NotImplementedError`` naming the leaf and its
-spec: LM tensors are never split across cards.  ``hint(x, *axes)``
-computes the reference's activation spec against the installed mesh
-(``hint_spec``) and returns ``x`` itself.  The activation mesh is
-process-global, as in the reference: ``set_activation_mesh`` installs
-it, ``launch.serve.Server`` and ``launch.train.build`` install it, and
-the MoE FFN takes its expert-parallel path (``models.moe.moe_ffn_ep``)
-while one is installed.
+``runtime_ft.elastic.reshard_state`` and ``launch.train``):
+
+* on a logical mesh whose tiles are all one device, the whole logical
+  tensor on that device (GSPMD's logical array, so no value changes).
+  A logical mesh whose tiles lie on different cards raises
+  ``NotImplementedError`` naming the leaf and its spec: one process
+  does not split an LM tensor over cards; launch one process per card
+  and use a rank mesh.
+* on a rank mesh, this rank's block as a ``DTensor``
+  (``spec_to_placements``: ``Shard(d)`` for each axis that names dim
+  ``d``, ``Replicate()`` otherwise; a dim split over a tuple of axes is
+  split data-major, as JAX lays it out).  The block is the one the
+  reference's ``NamedSharding`` gives this mesh position.
+
+The LM's compute on a rank mesh (``dist.steps.make_train_step``) runs
+on plain local tensors, not ``DTensor`` propagation: each rank gathers a
+parameter from its block where it is used (``dist.collectives``, one
+layer at a time), computes on its own batch rows, and reduces the
+gradients back to its blocks.  The ``model`` axis therefore shards the
+state (and the MoE's experts) but not the dense products.
+
+``hint(x, *axes)`` computes the reference's activation spec against the
+installed mesh (``hint_spec``): a ``DTensor`` activation is
+redistributed to it (``with_sharding_constraint``); a plain tensor,
+which every activation of the LM trunk is, comes back itself.  The
+activation mesh is process-global, as in the reference:
+``set_activation_mesh`` installs it, ``launch.serve.Server`` and
+``launch.train.build`` install it, and the MoE FFN takes its
+expert-parallel path (``models.moe.moe_ffn_ep``) while one is installed.
 """
 
 from __future__ import annotations
@@ -67,10 +88,40 @@ def _pad_to(x: int, mult: int) -> int:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """A named grid of devices: ``devices`` is a numpy object array of
-    ``torch.device`` whose shape is the mesh's, one name per axis."""
+    ``torch.device`` whose shape is the mesh's, one name per axis.  A
+    rank mesh also holds its ``DeviceMesh`` (``device_mesh``; None for a
+    logical mesh)."""
 
     devices: np.ndarray
     axis_names: Tuple[str, ...]
+    device_mesh: Any = None
+
+    @property
+    def distributed(self) -> bool:
+        """True for a rank mesh (one process per tile)."""
+        return self.device_mesh is not None
+
+    @property
+    def coords(self) -> dict:
+        """This rank's coordinates, axis name -> index (a rank mesh)."""
+        self._need_ranks("coords")
+        return dict(zip(self.axis_names, self.device_mesh.get_coordinate()))
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device (a rank mesh)."""
+        self._need_ranks("device")
+        return self.devices[tuple(self.device_mesh.get_coordinate())]
+
+    def group(self, axis: str):
+        """The process group of ``axis`` through this rank (a rank mesh)."""
+        self._need_ranks("group")
+        return self.device_mesh.get_group(axis)
+
+    def _need_ranks(self, what: str) -> None:
+        if self.device_mesh is None:
+            raise ValueError(f"{what} is defined on a rank mesh only "
+                             "(make_mesh(..., distributed=True))")
 
     @property
     def shape(self) -> dict:
@@ -83,28 +134,39 @@ class Mesh:
 
     @property
     def first_device(self) -> torch.device:
-        """Where results of a sharded call are assembled."""
-        return self.devices.flat[0]
+        """Where results of a sharded call are assembled (this rank's
+        device on a rank mesh)."""
+        return self.device if self.distributed else self.devices.flat[0]
 
     def device_at(self, coords: dict) -> torch.device:
         """The device at the named coordinates; unnamed axes take 0."""
         return self.devices[tuple(coords.get(a, 0) for a in self.axis_names)]
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={sorted({str(d) for d in self.devices.flat})})"
+        kind = ", ranks" if self.distributed else ""
+        return f"Mesh({self.shape}, devices={sorted({str(d) for d in self.devices.flat})}{kind})"
 
 
 def make_mesh(
     shape: Sequence[int],
     axis_names: Sequence[str] = ("data", "model"),
     devices=None,
+    *,
+    distributed: bool = False,
 ) -> Mesh:
     """A mesh of ``shape`` with ``axis_names``.
 
-    ``devices`` is ``None`` (the CUDA cards, tile ``i`` on card ``i %
-    device_count()``; raises without a card), one device for every tile
-    (``"cpu"``, ``"cuda:0"``, a ``torch.device``), or one device per tile
-    in row-major order."""
+    Logical (``distributed=False``): ``devices`` is ``None`` (the CUDA
+    cards, tile ``i`` on card ``i % device_count()``; raises without a
+    card), one device for every tile (``"cpu"``, ``"cuda:0"``, a
+    ``torch.device``), or one device per tile in row-major order.
+
+    Rank mesh (``distributed=True``): one process per tile, rank ``r``
+    at row-major position ``r``, under the process group that
+    ``launch.mesh.init_distributed`` started (raises without one, or when
+    its world size is not the mesh's size).  ``devices`` is ``None``
+    (this rank's card, under NCCL) or ``"cpu"`` (under gloo); a backend
+    that does not match the device raises."""
     shape = tuple(int(s) for s in shape)
     axis_names = tuple(axis_names)
     if len(shape) != len(axis_names):
@@ -114,6 +176,8 @@ def make_mesh(
     if any(s < 1 for s in shape):
         raise ValueError(f"mesh axis sizes must be >= 1, got {shape}")
     n = int(np.prod(shape))
+    if distributed:
+        return _rank_mesh(shape, axis_names, devices)
     if devices is None:
         first = resolve_device(None)  # raises without a card
         count = torch.cuda.device_count()
@@ -127,6 +191,55 @@ def make_mesh(
     grid = np.empty(n, dtype=object)
     grid[:] = flat
     return Mesh(grid.reshape(shape), axis_names)
+
+
+def _rank_mesh(shape, axis_names, devices) -> Mesh:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = int(np.prod(shape))
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"a rank mesh {shape} needs a torch.distributed process group: launch "
+            f"one process per device (python -m torch.distributed.run "
+            f"--nproc-per-node {n} ...) and call launch.mesh.init_distributed()"
+        )
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"the mesh {dict(zip(axis_names, shape))} has {n} tiles but "
+                         f"the process group's world size is {world}")
+    if devices is not None and not isinstance(devices, (str, torch.device)):
+        raise ValueError("a rank mesh takes one device kind ('cpu' or the cards), "
+                         f"not a list of devices: {devices!r}")
+    dev = resolve_device(devices)  # None: this rank's card; raises without one
+    backend = dist.get_backend()
+    want = "gloo" if dev.type == "cpu" else "nccl"
+    if backend != want:
+        raise ValueError(f"a rank mesh on {dev.type} runs under {want}, but the "
+                         f"process group's backend is {backend}")
+    dm = init_device_mesh(dev.type, shape, mesh_dim_names=tuple(axis_names))
+    grid = np.empty(n, dtype=object)
+    if dev.type == "cpu":
+        grid[:] = [dev] * n
+    else:
+        per_host = torch.cuda.device_count()
+        grid[:] = [torch.device("cuda", r % per_host) for r in range(n)]
+        grid[dist.get_rank()] = dev
+    mesh = Mesh(grid.reshape(shape), tuple(axis_names), dm)
+    _MESH_OF[id(dm)] = (dm, mesh)
+    return mesh
+
+
+# DeviceMesh -> the rank Mesh made on it (``mesh_of``)
+_MESH_OF: Dict[int, Tuple[Any, Mesh]] = {}
+
+
+def mesh_of(dt) -> Mesh:
+    """The rank ``Mesh`` a ``DTensor`` (from ``place``) lives on."""
+    entry = _MESH_OF.get(id(dt.device_mesh))
+    if entry is None or entry[0] is not dt.device_mesh:
+        raise ValueError("this DTensor's DeviceMesh was not made by make_mesh")
+    return entry[1]
 
 
 def _axis_sizes(mesh) -> dict:
@@ -246,9 +359,13 @@ def hint_spec(x, *axes) -> Optional[PartitionSpec]:
 
 
 def hint(x: torch.Tensor, *axes) -> torch.Tensor:
-    """Advisory activation layout (``hint_spec``).  The port keeps every
-    activation whole on its device, so ``x`` itself comes back."""
-    hint_spec(x, *axes)
+    """The reference's activation layout (``hint_spec``): a ``DTensor``
+    is redistributed to it (``with_sharding_constraint``); a plain
+    tensor (every activation of the LM trunk, which computes on local
+    tensors) comes back itself."""
+    spec = hint_spec(x, *axes)
+    if spec is not None and _is_dtensor(x):
+        return x.redistribute(x.device_mesh, spec_to_placements(spec, mesh_of(x)))
     return x
 
 
@@ -566,14 +683,20 @@ def spec_collective_bytes(cfg, shape, mesh, specs) -> Dict[str, float]:
 # ---------------------------------------------------------------------------
 
 def mesh_device(mesh, what: str = "a tensor") -> torch.device:
-    """The one device every tile of ``mesh`` is on.  A mesh over several
-    devices raises ``NotImplementedError``: the port keeps every LM
-    tensor whole on one device."""
+    """This rank's device on a rank mesh; on a logical mesh, the one
+    device every tile is on.  A logical mesh over several devices raises
+    ``NotImplementedError``: one process keeps every LM tensor whole on
+    one device."""
+    if getattr(mesh, "distributed", False):
+        return mesh.device
     devices = {str(d) for d in mesh.devices.flat}
     if len(devices) != 1:
+        n = mesh.devices.size
         raise NotImplementedError(
-            f"{what} on a mesh of {sorted(devices)}: the port places LM tensors "
-            "only on a mesh whose tiles are all one device"
+            f"{what} on a mesh of {sorted(devices)}: one process keeps LM tensors "
+            "whole on one device.  To split them over cards, launch one "
+            f"process per card (python -m torch.distributed.run --nproc-per-node {n} "
+            "...) and build a rank mesh with make_mesh(..., distributed=True)"
         )
     return mesh.devices.flat[0]
 
@@ -595,12 +718,113 @@ def _check_spec(shape, spec, mesh, name: str) -> None:
                              f"{tuple(shape)} {n} ways")
 
 
-def place(x, sharding: NamedSharding, name: str = "") -> torch.Tensor:
-    """``x`` (a tensor, numpy array or scalar) as a tensor laid out by
-    ``sharding``: the whole logical tensor on the mesh's device, which
+def _dtensor_api():
+    try:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+    except ImportError:  # torch < 2.4
+        from torch.distributed._tensor import DTensor, Replicate, Shard
+    return DTensor, Replicate, Shard
+
+
+def _is_dtensor(x) -> bool:
+    return isinstance(x, torch.Tensor) and isinstance(x, _dtensor_api()[0])
+
+
+def local(x):
+    """A ``DTensor``'s block on this rank (a view of its storage); any
+    other value itself."""
+    return x.to_local() if _is_dtensor(x) else x
+
+
+def spec_to_placements(spec, mesh) -> list:
+    """One placement per mesh axis: ``Shard(d)`` where the axis names dim
+    ``d`` of ``spec``, ``Replicate()`` otherwise.  A dim split over a
+    tuple of axes must name them in mesh order, so that ``DTensor``'s
+    left-to-right split is the data-major split JAX makes."""
+    _, Replicate, Shard = _dtensor_api()
+    where = {}
+    for d, entry in enumerate(spec):
+        names = _axes(entry)
+        order = [mesh.axis_names.index(a) for a in names]
+        if order != sorted(order):
+            raise ValueError(f"spec {spec}: dim {d} names {names} out of the mesh's "
+                             f"order {tuple(mesh.axis_names)}")
+        for a in names:
+            if a in where:
+                raise ValueError(f"spec {spec} names axis {a!r} twice")
+            where[a] = d
+    return [Shard(where[a]) if a in where else Replicate() for a in mesh.axis_names]
+
+
+def placements_to_spec(placements, mesh, ndim: int) -> PartitionSpec:
+    """The ``PartitionSpec`` of ``placements`` on ``mesh`` (the inverse
+    of ``spec_to_placements``)."""
+    entries = [[] for _ in range(ndim)]
+    for a, pl in zip(mesh.axis_names, placements):
+        if pl.is_shard():
+            entries[pl.dim].append(a)
+        elif not pl.is_replicate():
+            raise ValueError(f"placement {pl} on axis {a!r} is neither Shard nor Replicate")
+    while entries and not entries[-1]:
+        entries.pop()
+    return P(*(tuple(e) if e else None for e in entries))
+
+
+def local_slices(shape, spec, mesh) -> Tuple[slice, ...]:
+    """The slices of a ``shape`` tensor that ``spec`` assigns this rank
+    of the rank mesh ``mesh``: along a dim split over axes ``(a1, a2,
+    ...)``, block ``((i1 * n2) + i2) ...`` of ``n1 * n2 * ...`` (row-major
+    over the axes, as JAX numbers a tuple's blocks)."""
+    coords, sizes = mesh.coords, _axis_sizes(mesh)
+    out = []
+    for d, size in enumerate(shape):
+        names = _axes(spec[d]) if d < len(spec) else ()
+        idx, n = 0, 1
+        for a in names:
+            idx = idx * sizes[a] + coords[a]
+            n *= sizes[a]
+        step = size // n
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+def from_block(block: torch.Tensor, sharding: NamedSharding, shape) -> Any:
+    """This rank's ``block`` of a ``shape`` tensor laid out by
+    ``sharding`` (on a rank mesh) as a ``DTensor``."""
+    DTensor, _, _ = _dtensor_api()
+    mesh = sharding.mesh
+    shape = torch.Size(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(block, mesh.device_mesh,
+                              spec_to_placements(sharding.spec, mesh),
+                              run_check=False, shape=shape, stride=stride)
+
+
+def place(x, sharding: NamedSharding, name: str = ""):
+    """``x`` (a tensor, numpy array or scalar) laid out by ``sharding``.
+    On a rank mesh, this rank's block as a ``DTensor`` on its device; on
+    a logical mesh, the whole logical tensor on the mesh's device, which
     must be the same for every tile (see the module docstring)."""
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
     _check_spec(t.shape, sharding.spec, sharding.mesh, name)
-    dev = resolve_device(mesh_device(
-        sharding.mesh, f"leaf {name!r} with spec {sharding.spec}"))
+    mesh = sharding.mesh
+    if getattr(mesh, "distributed", False):
+        block = t[local_slices(t.shape, sharding.spec, mesh)]
+        # a block of its own, not a view that keeps the whole alive
+        block = block.to(mesh.device, copy=block.shape != t.shape)
+        return from_block(block.contiguous(), sharding, t.shape)
+    dev = resolve_device(mesh_device(mesh, f"leaf {name!r} with spec {sharding.spec}"))
     return t.to(dev)
+
+
+def place_tree(tree, shardings):
+    """Every leaf of ``tree`` placed by the matching ``NamedSharding`` of
+    ``shardings`` (the same structure; an ``LMParams`` comes back as an
+    ``LMParams`` over the placed tree)."""
+    from ..models.common import LMParams
+    from ..tree import as_tree, flatten, unflatten
+
+    sh = dict(flatten(as_tree(shardings)))
+    placed = unflatten((path, place(leaf, sh[path], path))
+                       for path, leaf in flatten(as_tree(tree)))
+    return LMParams(tree.cfg, placed) if isinstance(tree, LMParams) else placed

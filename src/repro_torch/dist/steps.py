@@ -6,7 +6,9 @@ port).
 ``make_train_step`` supports gradient-accumulation microbatching (the
 activation-memory knob recorded per arch as ``train_microbatches``): the
 global batch is split on its leading dim, grads are accumulated in fp32,
-then one AdamW update is applied.
+then one AdamW update is applied.  Given a rank mesh it builds the step
+of one rank (``_RankTrainStep``: the reference's GSPMD step, params and
+moments as ``DTensor`` blocks, see its docstring).
 
 TA state shards its class dim over ``model``; the batch shards over the
 non-``model`` axes (``sharding.batch_axes``).  Tile (batch shard ``b``,
@@ -21,6 +23,7 @@ applied.  Integer deltas commute, so the result equals
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Sequence, Tuple
 
 import numpy as np
@@ -46,14 +49,18 @@ def opt_config_for(cfg) -> adamw.AdamWConfig:
 
 
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, microbatches: int = 1,
-                    device=None) -> Callable:
+                    device=None, mesh=None) -> Callable:
     """-> step(params, opt_state, batch) -> (params, opt_state, metrics)
     with metrics = {"loss", "grad_norm"} (fp32 scalars on the device).
 
     The step runs on ``device`` (the CUDA card unless ``device="cpu"``):
     numpy batches are moved there; ``params`` (a ``LMParams`` or its tree)
     and ``opt_state`` must live there.  Params and moments are updated in
-    place and returned (``adamw.apply``)."""
+    place and returned (``adamw.apply``).  With a rank mesh (``mesh``
+    made with ``distributed=True``) it is this rank's step of the mesh
+    (``_RankTrainStep``); a logical mesh changes nothing here."""
+    if mesh is not None and getattr(mesh, "distributed", False):
+        return _RankTrainStep(cfg, opt_cfg, microbatches, mesh)
     fam = family_for(cfg)
     dev = resolve_device(device)
 
@@ -98,6 +105,92 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, microbatches: int = 1,
         return params, new_state, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+class _RankTrainStep:
+    """One rank's train step on a rank mesh: the reference's GSPMD step
+    (``jit`` with ``in_shardings``/``out_shardings``) written out.
+
+    ``params`` and the moments are ``DTensor`` blocks laid out by the
+    reference's specs (``sharding.place_tree``, ``adamw.init``); ``batch``
+    is ``shard_batch(..., microbatches=)``'s: this rank's rows of each
+    microbatch.  For each microbatch the rank runs the family's loss on
+    its rows with every parameter as a ``collectives.ShardedLeaf`` (a
+    weight is all-gathered where it is used, one layer at a time, and
+    the MoE keeps its own experts), so ranks of one ``model`` group
+    compute the same thing.  Gradients come back as blocks: summed over
+    the batch axes by a reduce-scatter where the spec splits the leaf
+    over them, by one all-reduce per step where it does not, never over
+    an axis whose ranks computed the same rows.  Loss and gradients are
+    the mean over the global batch, the gradient norm counts every
+    logical element once (``adamw.apply``), and the update runs in place
+    on the blocks."""
+
+    def __init__(self, cfg, opt_cfg, microbatches: int, mesh):
+        self.cfg, self.opt_cfg, self.mesh = cfg, opt_cfg, mesh
+        self.microbatches = int(microbatches)
+        self.fam = family_for(cfg)
+
+    def __call__(self, params, opt_state, batch):
+        from .collectives import ShardedLeaf, all_reduce
+        from .sharding import (_axes, _is_dtensor, batch_axes, local,
+                               placements_to_spec)
+
+        mesh, mb = self.mesh, self.microbatches
+        pairs = flatten(as_tree(params))
+        for path, p in pairs:
+            if not _is_dtensor(p):
+                raise ValueError(f"param {path!r} is not a block of the rank mesh "
+                                 "(sharding.place_tree)")
+        specs = [placements_to_spec(p.placements, mesh, p.dim()) for _, p in pairs]
+        B = next(iter(batch.values())).shape[0]
+        if B % mb:
+            raise ValueError(f"global batch {B} not divisible by "
+                             f"train_microbatches={mb}")
+        axes = batch_axes(mesh, B // mb) or ()
+        rows = {}
+        for k, v in batch.items():
+            if not _is_dtensor(v):
+                raise ValueError(f"input {k!r} is not this rank's rows "
+                                 "(data.pipeline.shard_batch on the rank mesh)")
+            if v.dim() and v.shape[0] == B:
+                spec = placements_to_spec(v.placements, mesh, v.dim())
+                split = _axes(spec[0]) if len(spec) else ()
+                if split != tuple(axes):
+                    raise ValueError(
+                        f"input {k!r} is split over {split}, the step's {mb} "
+                        f"microbatches over {axes}: shard_batch(..., microbatches={mb})")
+            rows[k] = local(v).to(mesh.device)
+        partial = tuple(a for a in axes if mesh.shape[a] > 1)
+        n_shards = math.prod(mesh.shape[a] for a in axes)
+
+        xs = [local(p).detach().requires_grad_() for _, p in pairs]
+        leaves = [(path, x, spec) for (path, _), x, spec in zip(pairs, xs, specs)]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=mesh.device)
+        g_sum = None
+        for i in range(mb):
+            b = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+                 if v.dim() and v.shape[0] * n_shards == B else v
+                 for k, v in rows.items()}
+            tree = unflatten((path, ShardedLeaf(x, spec, mesh, partial))
+                             for path, x, spec in leaves)
+            loss = self.fam.loss(self.cfg, tree, b)
+            grads = torch.autograd.grad(loss, xs)
+            if g_sum is None:
+                g_sum = [g.to(torch.float32) for g in grads]
+            else:
+                for acc, g in zip(g_sum, grads):
+                    acc.add_(g)
+            del grads, tree
+            loss_sum = loss_sum + loss.detach().to(torch.float32)
+        for acc, spec in zip(g_sum, specs):
+            named = {a for e in spec for a in _axes(e)}
+            all_reduce(acc, mesh, [a for a in partial if a not in named])
+            acc.div_(mb * n_shards)
+        loss = all_reduce(loss_sum, mesh, partial) / (mb * n_shards)
+        grads = unflatten((path, acc) for (path, _), acc in zip(pairs, g_sum))
+        params, new_state, gnorm = adamw.apply(self.opt_cfg, params, grads, opt_state)
+        return params, new_state, {"loss": loss, "grad_norm": gnorm}
 
 
 def make_prefill_step(cfg) -> Callable:

@@ -37,6 +37,10 @@ class Server:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh
+        if getattr(mesh, "distributed", False):
+            raise NotImplementedError(
+                "Server on a rank mesh (one process per card): the caches' "
+                "cache_shardings over ranks are not ported; serve on a logical mesh")
         if mesh is not None:
             on = resolve_device(shd.mesh_device(mesh, "Server"))
             if on != self.device:

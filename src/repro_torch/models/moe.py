@@ -15,12 +15,18 @@ Dispatch:
 While an activation mesh is installed (``dist.sharding.
 set_activation_mesh``) and its ``model`` axis divides ``n_experts``,
 ``moe_ffn`` takes the expert-parallel path ``moe_ffn_ep``, as the
-reference's does.  One process drives its tiles (no collective): each
-batch shard's tile ``m`` routes its tokens against the global router,
-keeps its own experts ``[m * E/n, (m+1) * E/n)`` with capacity
-``moe_capacity(cfg, T_local)`` per expert, and the partial outputs are
-summed over ``model`` in tile order on the mesh's first device (the
-reference's ``psum``).
+reference's does: each batch shard's tile ``m`` routes its tokens
+against the global router, keeps its own experts ``[m * E/n, (m+1) *
+E/n)`` with capacity ``moe_capacity(cfg, T_local)`` per expert, and the
+partial outputs are summed over ``model`` (the reference's ``psum``).
+On a logical mesh one process drives the tiles one after another and
+sums them in tile order on the mesh's first device.  On a rank mesh each
+rank is one tile: ``x`` is its own token rows, its experts are its block
+of the expert weights, and one ``all_reduce`` over its ``model`` group
+sums the partials (``dist.collectives.from_model_region``; the
+gradients of the tokens and the router are summed over ``model`` on the
+way back, ``to_model_region``).  The dispatch (``index_put`` /
+``index_add``) runs on the rank's local tensors.
 """
 
 from __future__ import annotations
@@ -143,6 +149,8 @@ def moe_ffn_ep(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     picks are those of the plain path applied to each shard."""
     from ..dist.sharding import _axis_sizes, batch_shards
 
+    if getattr(mesh, "distributed", False):
+        return _moe_ffn_ranks(p, x, cfg, mesh)
     B, S, D = x.shape
     n_model = _axis_sizes(mesh)["model"]
     shards = batch_shards(mesh, B)
@@ -168,3 +176,41 @@ def moe_ffn_ep(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
             y = yl if y is None else y + yl  # the reference's psum over model
         outs.append(y.reshape(B_l, S, D))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+
+def _expert_block(w, lo: int, E_local: int) -> torch.Tensor:
+    """This rank's experts ``[lo, lo + E_local)`` of an expert weight: the
+    block of a ``ShardedLeaf`` split over ``model`` on its expert dim
+    (its other dims gathered), or a slice of a whole tensor."""
+    from ..dist.collectives import ShardedLeaf, _axes
+
+    if isinstance(w, ShardedLeaf):
+        if _axes(w.spec[0] if w.spec else None) != ("model",):
+            raise ValueError(f"an expert weight split {w.spec}, not over model on "
+                             "its expert dim")
+        return w.without_dim0().gather()
+    return w[lo:lo + E_local]
+
+
+def _moe_ffn_ranks(p, x: torch.Tensor, cfg: ArchConfig, mesh) -> torch.Tensor:
+    """``moe_ffn_ep`` for this rank of a rank mesh: ``x`` [B_l, S, D] is
+    its token rows (the same on every rank of its ``model`` group)."""
+    from ..dist.collectives import ShardedLeaf, from_model_region, to_model_region
+
+    B_l, S, D = x.shape
+    n_model = mesh.shape["model"]
+    T_local = B_l * S
+    E_local = cfg.n_experts // n_model
+    lo = mesh.coords["model"] * E_local
+    router = p["router"]
+    if isinstance(router, ShardedLeaf):
+        router = router.gather()
+    xf = to_model_region(x.reshape(T_local, D), mesh)
+    logits = torch.einsum("td,de->te", xf.to(torch.float32),
+                          to_model_region(router, mesh))
+    w = [_expert_block(p[n], lo, E_local) for n in ("w_gate", "w_up", "w_down")]
+    yl = _dispatch_compute(
+        xf, logits, *w, k=cfg.top_k, n_experts=cfg.n_experts,
+        C=moe_capacity(cfg, T_local), dtype=x.dtype, expert_lo=lo,
+    )
+    return from_model_region(yl, mesh).reshape(B_l, S, D)

@@ -12,13 +12,17 @@ Usage (train loop):
     grads_q, comp = comp.compress(grads)     # before the reduce
     grads   = comp.decompress(grads_q)       # after the reduce
 
-``compressed_psum`` is the reduce: one process holds every member of the
-data axis, so it takes their ``CompressedGrads`` in axis order.
+``compressed_psum`` is the reduce.  Where one process holds every member
+of the data axis it takes their ``CompressedGrads`` in axis order; under
+``torch.distributed`` each rank passes its own and the axis's process
+group (``compressed_psum(cg, group)``): the int8 payloads and scales are
+all-gathered and the same fp32 sum is made on every rank, bit-equal to
+the list form over the members in rank order.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Sequence, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
 
@@ -60,11 +64,19 @@ class GradCompressor(NamedTuple):
         return tree_map(lambda q, s: q.to(torch.float32) * s, cg.q, cg.scale)
 
 
-def compressed_psum(members: Sequence[CompressedGrads]) -> Any:
+def compressed_psum(members, group=None) -> Any:
     """The all-reduce of the int8 payload (the reference's
     ``compressed_psum`` over an axis): each member's dequantized tree
     ``q * scale``, summed in fp32 in axis order on the first member's
-    devices.  Every member of the reference's axis receives this sum."""
+    devices.  Every member of the reference's axis receives this sum.
+
+    ``members`` is the axis's ``CompressedGrads`` in axis order, or this
+    rank's own ``CompressedGrads`` with ``group`` the axis's process
+    group: the payloads are all-gathered and summed in rank order."""
+    if isinstance(members, CompressedGrads):
+        return compressed_psum(_gather_members(members, group))
+    if group is not None:
+        raise ValueError("group= goes with this rank's CompressedGrads, not a list")
     if not members:
         raise ValueError("compressed_psum needs at least one member")
     deq = [GradCompressor.decompress(cg) for cg in members]
@@ -76,3 +88,22 @@ def compressed_psum(members: Sequence[CompressedGrads]) -> Any:
         return out
 
     return tree_map(total, *deq)
+
+
+def _gather_members(cg: CompressedGrads, group) -> list:
+    """Every rank's ``CompressedGrads`` of ``group``, in rank order."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+
+    def gather(t):
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        return parts
+
+    q = tree_map(gather, as_tree(cg.q))
+    s = tree_map(gather, as_tree(cg.scale))
+    return [CompressedGrads(q=tree_map(lambda parts: parts[r], q),
+                            scale=tree_map(lambda parts: parts[r], s))
+            for r in range(n)]

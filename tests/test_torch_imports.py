@@ -56,7 +56,7 @@ MODULES = ["repro_torch.core.runtime", "repro_torch.core.interp",
            "repro_torch.launch.train", "repro_torch.launch.mesh",
            "repro_torch.runtime_ft.elastic", "repro_torch.analysis.roofline",
            "repro_torch.analysis.corrections", "repro_torch.analysis.report",
-           "repro_torch.launch.dryrun"]
+           "repro_torch.launch.dryrun", "repro_torch.dist.collectives"]
 
 _PROBE = """
 import importlib, pkgutil, sys
