@@ -187,6 +187,20 @@ features, ~17k includes, 8192 datapoints per flush) it
      within ``LM_TOL``, step ms (slowest rank), peak memory, and the
      last step profiled (idle share, top device operations, collective
      bytes per kind);
+  3l. LM serving on a rank mesh (``rank_phase``'s first mesh, in 3k's
+     ranks once ``launch.train.main`` returns, the trained state dropped;
+     no kernel of its own): 3g's arch at full width in bf16 from
+     ``init_params(cfg, 0)``, placed by ``param_shardings`` on a (1, N)
+     rank mesh of the N cards (``model`` split where there are cards for
+     it; otherwise a line says no multi-card mesh was available) and
+     served by ``Server(batch=4, prompt_cap=4000, gen_cap=96)`` from 3g's
+     prompts: its 16 tokens equal 3g's first 16 exactly; the server's
+     own prefill and decode steps in that ``generate`` timed (host clock
+     to a synchronise), its last decode step profiled (idle share,
+     collective bytes per kind), peak memory, and the rank's cache bytes
+     against ``_memory_of``'s decode alias bytes (they must agree); on a
+     (1, 1) mesh the rank decode step timed in turns with the one-device
+     step in the same process;
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
@@ -1807,6 +1821,24 @@ def events_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def launch_us(dev, n=2000):
+    """Host microseconds per launch of a one-element in-place add (``n``
+    launches, host clock to a synchronise): what a launch costs the host
+    in this process, the floor under a launch-bound step."""
+    import torch
+
+    x = torch.zeros(1, device=dev)
+    for _ in range(50):
+        x.add_(1)
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    sync()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
 def profile_device(tag, fn, card, top=5):
     """Run ``fn`` once under ``torch.profiler`` (host and device) and
     print its wall time, the device's busy time and idle share, and its
@@ -1855,7 +1887,8 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
     (name, power limit) goes on every line with a number.  Returns
     ``arch``'s params (after the train steps) and the shapes and median
     ms of its prefill and train step, for phase 3j, and the train steps'
-    (loss, grad norm) and peak memory, for phase 3k."""
+    (loss, grad norm) and peak memory, for phase 3k, and the served tokens,
+    prefill and decode ms and peak memory, for phase 3l."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1976,6 +2009,7 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
     if not torch.isfinite(logits).all():
         fail("3g: prefill logits are not finite")
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    serve_launch_us = launch_us(dev)
     decode_ms = []
     for i in range(gen_cap - 1):
         (tok, cache), ms = events_ms(lambda: server.decode(
@@ -1992,8 +2026,9 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
     print(f"lm 3g serve {arch}: prefill {p_ms:.3f} ms (median of 3: {prefill_ms}) for "
           f"{B} x {server.cache_cap} positions, {B * server.cache_cap / p_ms * 1e3:.1f} "
           f"tok/s; decode {d_ms:.3f} ms per step (median of {len(decode_ms)}), "
-          f"{B / d_ms * 1e3:.1f} tok/s; peak memory {peak:.3f} GiB [{card}]")
-    server_cap = server.cache_cap
+          f"{B / d_ms * 1e3:.1f} tok/s; peak memory {peak:.3f} GiB; a launch costs the "
+          f"host {serve_launch_us:.2f} us here [{card}]")
+    server_cap, serve_peak = server.cache_cap, peak
     del server, cache, logits, batch
 
     # -- arch at full width and depth: train ------------------------------
@@ -2087,7 +2122,9 @@ def lm_phase(dev, card, arch="stablelm-3b", serve=(4, 4000, 96), train=(4, 4096)
     print(f"lm 3g: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
     return {"arch": arch, "params": params, "prefill": (B, server_cap),
             "prefill_ms": p_ms, "train": (Bt, St), "train_ms": s_ms,
-            "train_metrics": train_metrics, "train_peak_gib": peak}
+            "train_metrics": train_metrics, "train_peak_gib": peak,
+            "serve": serve, "tokens": tokens, "serve_decode_ms": d_ms,
+            "serve_peak_gib": serve_peak, "serve_launch_us": serve_launch_us}
 
 
 # ---------------------------------------------------------------------------
@@ -2255,6 +2292,20 @@ def bound_mixed(n_bytes: int, bf16_ops: int, fp32_ops: int):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _device_events(prof):
+    """{name: (device us, count)} of a CUDA-activity profile, summed from
+    its raw events (see ``raw_profile``)."""
+    import torch
+
+    names = {}
+    cuda = torch.autograd.DeviceType.CUDA
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda:
+            us, n = names.get(ev.name(), (0.0, 0))
+            names[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    return names
+
+
 def raw_profile(tag, fn, card, top=5):
     """Run ``fn`` once under ``torch.profiler`` (device activity) and print
     its wall time, the device's busy time and idle share, its device
@@ -2264,18 +2315,13 @@ def raw_profile(tag, fn, card, top=5):
     result, device operations)."""
     import torch
 
-    cuda = torch.autograd.DeviceType.CUDA
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    names = {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == cuda:
-            us, n = names.get(ev.name(), (0.0, 0))
-            names[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    names = _device_events(prof)
     busy = sum(us for us, _ in names.values())
     n_ops = sum(n for _, n in names.values())
     print(f"profile {tag}: wall {wall_us:.1f} us, device busy {busy:.1f} us "
@@ -2906,10 +2952,12 @@ def mesh_phase(dev, card, moe_arch="moonshot-v1-16b-a3b", moe_x=(4, 1024),
 # collectives in the role of the reference's GSPMD collectives)
 # ---------------------------------------------------------------------------
 
-def _rank_worker(rank, world, store, argv, out_dir, device=None):
+def _rank_worker(rank, world, store, argv, out_dir, device=None, serve=None):
     """One rank of phase 3k: ``launch.train.main(argv)`` on this rank's
     card under NCCL (``device=None``; ``"cpu"`` rehearses it under gloo),
-    its last step profiled; rank 0 writes the record."""
+    its last step profiled; then, given ``serve`` (``_rank_serve``'s
+    arguments), phase 3l in the same process group.  Rank 0 writes the
+    record."""
     import torch
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import init_distributed
@@ -2919,6 +2967,7 @@ def _rank_worker(rank, world, store, argv, out_dir, device=None):
                             world_size=world, timeout_s=600)
     t_init = time.perf_counter() - t0
     card = device is None
+    fresh_launch_us = launch_us(info["device"])
     sync = torch.cuda.synchronize if card else (lambda: None)
     if card:
         torch.cuda.reset_peak_memory_stats()
@@ -2945,13 +2994,7 @@ def _rank_worker(rank, world, store, argv, out_dir, device=None):
                             on_step=on_step)
     t_main = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30 if card else 0.0
-    names = {}
-    if prof is not None:
-        cuda = torch.autograd.DeviceType.CUDA
-        for ev in prof.profiler.kineto_results.events():
-            if ev.device_type() == cuda:
-                us, n = names.get(ev.name(), (0.0, 0))
-                names[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    names = _device_events(prof) if prof is not None else {}
     top = sorted(((us, key[:80], n) for key, (us, n) in names.items()), reverse=True)
     out = {"metrics": rec["metrics"], "step_s": rec["step_s"],
            "collectives": rec["collectives"], "peak_gib": peak,
@@ -2960,19 +3003,151 @@ def _rank_worker(rank, world, store, argv, out_dir, device=None):
            "wall_us": span["wall_us"], "top": top[:5],
            "device": str(info["device"]), "backend": info["backend"],
            "init_s": t_init, "main_s": t_main}
+    del rec, prof  # the trained state: 3l starts from its own weights
+    if serve is not None:
+        if card:
+            torch.cuda.empty_cache()
+        out["serve"] = _rank_serve(*serve, device=device)
+        out["serve"]["fresh_launch_us"] = fresh_launch_us
     if rank == 0:
         Path(out_dir, "rank0.json").write_text(json.dumps(out))
     torch.distributed.destroy_process_group()
 
 
-def rank_phase(dev, card, one_device, steps=3, timeout_s=600):
+def _rank_serve(arch, serve, n_tokens, device=None):
+    """Phase 3l on this rank: ``arch`` at full width from
+    ``init_params(cfg, 0)``, placed by ``param_shardings`` on a (1, world)
+    rank mesh and served by ``Server(batch, prompt_cap, gen_cap = serve)``:
+    one ``generate`` of ``n_tokens`` from 3g's prompts, the server's own
+    prefill and decode steps each timed (host clock to a synchronise) and
+    its last decode step profiled with its collectives logged.  On a
+    (1, 1) mesh the rank decode step is then timed in four rounds of
+    one-device / rank / rank / one-device steps (``make_decode_step(cfg)``
+    on the same blocks), so this process's cost of each shows apart from
+    the rank path's.  -> the rank's record."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get
+    from repro_torch.dist import collectives
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.steps import make_decode_step
+    from repro_torch.launch.dryrun import _memory_of
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import api
+    from repro_torch.tree import as_tree
+
+    t_phase = time.perf_counter()
+    card = device is None
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    cfg = get(arch)
+    fam = api.family_for(cfg)
+    B, prompt_cap, gen_cap = serve
+    mesh = shd.make_mesh((1, torch.distributed.get_world_size()), devices=device,
+                         distributed=True)
+    params = shd.place_tree(fam.init_params(cfg, 0, device=mesh.device),
+                            shd.param_shardings(cfg, mesh, fam.param_specs(cfg)))
+    server = Server(cfg, mesh, batch=B, prompt_cap=prompt_cap, gen_cap=gen_cap)
+    server.load_weights(params)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, prompt_cap)).astype(
+        np.int32)
+    ms, rec = {"prefill": [], "decode": []}, {}
+
+    def timed(name, step):
+        def run(*args):
+            last = name == "decode" and len(ms["decode"]) == n_tokens - 2
+            prof = None
+            if last:  # generate's last decode step: profiled, its collectives logged
+                collectives.reset_counts()
+                if card:
+                    prof = torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA])
+                    prof.__enter__()
+            sync()
+            t0 = time.perf_counter()
+            out = step(*args)
+            sync()
+            t = (time.perf_counter() - t0) * 1e3
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            if not last:
+                ms[name].append(t)
+            elif name == "decode":
+                rec.update(step_wall_us=t * 1e3, step_collectives=collectives.counts(),
+                           names=_device_events(prof) if prof is not None else {},
+                           tok=out[0], cache=out[1])
+            if name == "prefill":
+                blocks = []
+                shd.map_leaves(lambda t: blocks.append(shd.local(t)), out[1])
+                rec["cache_bytes"] = sum(t.numel() * t.element_size() for t in blocks)
+            return out
+        return run
+
+    rank_decode = server.decode
+    server.prefill = timed("prefill", server.prefill)
+    server.decode = timed("decode", rank_decode)
+    tokens = server.generate(prompts, n_tokens)
+    names = rec.pop("names")
+    top = sorted(((us, key[:80], n) for key, (us, n) in names.items()), reverse=True)
+    out = {"mesh": (1, mesh.shape["model"]), "tokens": tokens.tolist(),
+           "prefill_ms": ms["prefill"][0], "decode_ms": ms["decode"],
+           "step_collectives": rec["step_collectives"],
+           "step_wall_us": rec["step_wall_us"],
+           "step_busy_us": sum(us for us, _ in names.values()),
+           "step_launches": sum(n for _, n in names.values()), "step_top": top[:5],
+           "cache_bytes": rec["cache_bytes"],
+           "memory_of_bytes": _memory_of(cfg, ShapeSpec("decode", server.cache_cap, B,
+                                                        "decode"), mesh)[
+               "alias_size_in_bytes"]}
+    out["launch_us"] = launch_us(mesh.device)
+    if torch.distributed.get_world_size() == 1:
+        one = make_decode_step(cfg)
+        one_params = shd.map_leaves(shd.local, as_tree(params))
+        one_cache = shd.map_leaves(shd.local, rec["cache"])
+        tok = shd.local(rec["tok"])[:, None]
+        rows = shd.NamedSharding(mesh, shd.P(shd.batch_axes(mesh, B), None))
+        rank_tok = shd.from_block(tok, rows, (B, 1))
+        sides = {"one-device": lambda pos: one(one_params, one_cache,
+                                                {"token": tok, "pos": pos}),
+                 "rank": lambda pos: rank_decode(params, rec["cache"],
+                                                 {"token": rank_tok, "pos": pos})}
+        out["turns"] = {k: [] for k in sides}
+        for r in range(4):
+            for side in ("one-device", "rank", "rank", "one-device"):
+                sync()
+                t0 = time.perf_counter()
+                sides[side](prompt_cap + n_tokens - 1 + r)
+                sync()
+                out["turns"][side].append((time.perf_counter() - t0) * 1e3)
+        del one_params, one_cache
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if card else 0.0
+    del server, params, rec
+    shd.set_activation_mesh(None)
+    if card:
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def rank_phase(dev, card, one_device, steps=3, timeout_s=600, serve_tokens=16):
     """Phase 3k: ``launch.train.main`` on a rank mesh of one process per
     card under NCCL (``torch.cuda.device_count()`` ranks, a (N, 1) mesh;
     also (2, 2) where there are four cards) at ``one_device``'s arch and
     (batch, seq) from random weights (seed 0): the same params and
     batches as phase 3g's one-device steps, so its losses and gradient
     norms must equal 3g's within ``LM_TOL``.  Prints step ms, peak GiB and
-    the idle share of the last (profiled) step beside 3g's."""
+    the idle share of the last (profiled) step beside 3g's.
+
+    Phase 3l runs in the first mesh's ranks once ``launch.train.main``
+    returns (one process group): ``one_device``'s arch served on a (1, N)
+    rank mesh (``_rank_serve``) from 3g's weights (seed 0) and prompts;
+    its ``serve_tokens`` tokens must equal the first of 3g's ``generate``
+    exactly, and each rank's cache bytes ``_memory_of``'s decode alias
+    bytes.  Prints prefill ms, decode ms per step, peak memory, the idle
+    share of one decode step, its collective bytes and the cache bytes
+    beside 3g's."""
     import shutil
     import tempfile
 
@@ -2989,6 +3164,7 @@ def rank_phase(dev, card, one_device, steps=3, timeout_s=600):
               f"mesh is (1, 1), one NCCL rank; no multi-card time is measured [{card}]")
     torch.cuda.empty_cache()
     want = one_device["train_metrics"][:steps]
+    serve = (arch, one_device["serve"], serve_tokens)
     for shape in meshes:
         world = shape[0] * shape[1]
         argv = ["--arch", arch, "--mesh", f"{shape[0]}x{shape[1]}", "--batch", str(B),
@@ -2997,7 +3173,7 @@ def rank_phase(dev, card, one_device, steps=3, timeout_s=600):
         try:
             ctx = mp.spawn(_rank_worker, nprocs=world, join=False, args=(
                 world, str(tmp / "store"), argv, str(tmp),
-                "cpu" if dev.type == "cpu" else None))
+                "cpu" if dev.type == "cpu" else None, serve if shape == meshes[0] else None))
             deadline = time.perf_counter() + timeout_s
             while not ctx.join(timeout=5):
                 if time.perf_counter() > deadline:
@@ -3030,7 +3206,65 @@ def rank_phase(dev, card, one_device, steps=3, timeout_s=600):
         if not all(np.isfinite(v) for m in got for v in m) or not max(errs) <= LM_TOL:
             fail(f"3k: the rank mesh {shape} differs from 3g's one-device steps: "
                  f"{got} vs {want}")
+        if "serve" in rec:
+            serve_report(rec["serve"], one_device, rec["backend"], card)
     print(f"lm 3k: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+def serve_report(rec, one_device, backend, card):
+    """Phase 3l's lines and checks from rank 0's ``_rank_serve`` record."""
+    import numpy as np
+
+    arch, (B, prompt_cap, gen_cap) = one_device["arch"], one_device["serve"]
+    shape = tuple(rec["mesh"])
+    if shape[1] < 2:
+        print(f"lm 3l: no multi-card mesh was available ({shape[1]} card(s) here): the "
+              f"rank mesh is {shape}, one {backend} rank; its heads are not split and "
+              f"no multi-card time is measured [{card}]")
+    got = np.asarray(rec["tokens"], np.int32)
+    want = np.asarray(one_device["tokens"])[:, :got.shape[1]]
+    same = got.shape == want.shape and np.array_equal(got, want)
+    print(f"lm 3l serve {arch} mesh {shape} ({backend}): Server(batch={B}, prompt_cap="
+          f"{prompt_cap}, gen_cap={gen_cap}) on the rank mesh, {got.shape[1]} tokens "
+          f"{'equal' if same else 'DIFFER from'} 3g's first {got.shape[1]} (exact) [{card}]")
+    if not same:
+        fail(f"3l: the rank-mesh tokens differ from 3g's: {got.tolist()} vs "
+             f"{want.tolist()}")
+    d_ms = statistics.median(rec["decode_ms"])
+    idle = 1 - rec["step_busy_us"] / rec["step_wall_us"] if rec["step_busy_us"] else \
+        float("nan")
+    print(f"lm 3l serve {arch} mesh {shape}: generate's own steps, host clock to a "
+          f"synchronise: prefill {rec['prefill_ms']:.3f} ms (3g's "
+          f"{one_device['prefill_ms']:.3f}, median of 3, events); decode {d_ms:.3f} ms "
+          f"per step (median of {len(rec['decode_ms'])} unprofiled: {rec['decode_ms']}; "
+          f"3g's {one_device['serve_decode_ms']:.3f}); peak memory {rec['peak_gib']:.3f} "
+          f"GiB (3g's serve {one_device['serve_peak_gib']:.3f}) [{card}]")
+    print(f"lm 3l decode step {arch} mesh {shape} profiled: wall {rec['step_wall_us']:.1f} "
+          f"us, device busy {rec['step_busy_us']:.1f} us in {rec['step_launches']} device "
+          f"operations (idle share {idle:.3f}); collective bytes per kind "
+          f"{rec['step_collectives']} [{card}]")
+    for us, key, count in rec["step_top"]:
+        print(f"profile 3l decode step: {us:.1f} us  x{count}  {key} [{card}]")
+    if "turns" in rec:
+        med = {k: statistics.median(v) for k, v in rec["turns"].items()}
+        print(f"lm 3l decode step in turns in this rank's process (one-device / rank / "
+              f"rank / one-device, host clock to a synchronise): one-device "
+              f"{med['one-device']:.3f} ms, rank {med['rank']:.3f} ms (medians of "
+              f"{len(rec['turns']['rank'])}; 3g's one-device step in the main process "
+              f"{one_device['serve_decode_ms']:.3f}); {rec['turns']} [{card}]")
+    print(f"lm 3l a launch costs the host {rec['launch_us']:.2f} us in this rank's "
+          f"process after 3k's training, {rec['fresh_launch_us']:.2f} us in it before, "
+          f"{one_device['serve_launch_us']:.2f} us in the main process at 3g's decode "
+          f"[{card}]")
+    agree = rec["cache_bytes"] == rec["memory_of_bytes"]
+    print(f"lm 3l cache {arch} mesh {shape}: the rank's cache blocks hold "
+          f"{rec['cache_bytes']:,} B; _memory_of(decode, B={B}, cache {prompt_cap + gen_cap}"
+          f") alias bytes per device {rec['memory_of_bytes']:,.0f} B: "
+          f"{'agree' if agree else 'DISAGREE'} [{card}]")
+    if not agree:
+        fail(f"3l: cache bytes {rec['cache_bytes']} against _memory_of's "
+             f"{rec['memory_of_bytes']}")
+    print(f"lm 3l: phase {rec['phase_s']:.1f} s (in 3k's ranks) [{card}]")
 
 
 def main() -> int:
@@ -3528,7 +3762,9 @@ def main() -> int:
     # -- 3j. the dry run held against 3g's steps and 3f's clause_table ----
     dryrun_phase(dev, card_identity(), lm, table_us)
     one_device = {k: lm[k] for k in ("arch", "train", "train_ms", "train_metrics",
-                                     "train_peak_gib")}
+                                     "train_peak_gib", "serve", "tokens", "prefill_ms",
+                                     "serve_decode_ms", "serve_peak_gib",
+                                     "serve_launch_us")}
     del lm
 
     # -- 3h. the recurrent and encoder-decoder families -------------------
@@ -3537,7 +3773,7 @@ def main() -> int:
     # -- 3i. the LM on a mesh: EP MoE, moonshot served, launch.train -------
     mesh_phase(dev, card_identity())
 
-    # -- 3k. the LM train path on a rank mesh: one process per card -------
+    # -- 3k, 3l. the LM train path and serving on a rank mesh -------------
     rank_phase(dev, card_identity(), one_device)
 
     # -- 4. timings --------------------------------------------------------

@@ -22,11 +22,11 @@ Modules:
   steps.py       make_tm_train_step, the class-sharded TM feedback step
                  the recal worker scales out with; the LM steps
                  (make_train_step, make_prefill_step, make_decode_step,
-                 opt_config_for) on one device, and the train step of
-                 one rank of a rank mesh
+                 opt_config_for) on one device, and the train,
+                 prefill and decode steps of one rank of a rank mesh
 
-The TM paths and serving run on logical meshes (one process drives
-every device); the LM train step also runs on a rank mesh under
+The TM paths run on logical meshes (one process drives every device);
+the LM train, prefill and decode steps also run on a rank mesh under
 ``torch.distributed``.  ``tm_sharded.dryrun_tm`` is the TM path of the
 dry run (``launch.dryrun --include-tm``).
 """

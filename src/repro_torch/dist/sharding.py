@@ -55,7 +55,11 @@ on plain local tensors, not ``DTensor`` propagation: each rank gathers a
 parameter from its block where it is used (``dist.collectives``, one
 layer at a time), computes on its own batch rows, and reduces the
 gradients back to its blocks.  The ``model`` axis therefore shards the
-state (and the MoE's experts) but not the dense products.
+state (and the MoE's experts) but not the dense products of a train
+step.  The serving steps (``make_prefill_step``/``make_decode_step``
+with a rank mesh) keep each decode cache as its ``cache_shardings``
+blocks: attention runs head-parallel over ``model`` on the rank's heads
+(``head_ranges``), a recurrent state is gathered where it is used.
 
 ``hint(x, *axes)`` computes the reference's activation spec against the
 installed mesh (``hint_spec``): a ``DTensor`` activation is
@@ -571,6 +575,56 @@ def cache_shardings(cfg, mesh, shape, c_specs) -> Any:
     return map_leaves(rule, c_specs)
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadRanges:
+    """This rank's heads of a decode cache that ``cache_shardings`` splits
+    over ``model`` on a rank mesh (``head_ranges``).  ``q`` and ``kv`` are
+    its query and KV heads (its KV-cache block's heads, and the query
+    heads of their GQA groups), ``state`` its heads of a recurrent state
+    (the SSM's or the mLSTM's); each is None where that head dim is
+    replicated."""
+
+    mesh: Any
+    q: Optional[slice] = None
+    kv: Optional[slice] = None
+    state: Optional[slice] = None
+
+
+def head_ranges(cfg, mesh, c_sh) -> Optional[HeadRanges]:
+    """The rank's head ranges from ``c_sh``, the cache's shardings
+    (``cache_shardings``' tree, or the same specs read off its blocks):
+    a range for each head dim a spec splits over ``model``, None for one
+    it leaves replicated.  The KV head dim is dim 3 of the KV leaves
+    ([stack, B, S, H, hd]: ``k`` of the dict families, Zamba2's ring
+    buffer); the state's is the mLSTM ``C``'s dim 2 ([P, B, H, hd, hd])
+    and the SSM state's dim 3 ([G, E, B, H, N, P]).  None off a rank
+    mesh, with one ``model`` rank, or when nothing is split."""
+    if not getattr(mesh, "distributed", False) or mesh.shape.get("model", 1) == 1:
+        return None
+    n, m = mesh.shape["model"], mesh.coords["model"]
+    if cfg.family == "ssm_xlstm":
+        kv, state = None, (c_sh[0][0], 2, cfg.n_heads)
+    elif cfg.family == "hybrid":
+        from ..models.ssm import ssm_dims  # deferred: models import dist
+
+        kv, state = c_sh[1][0], (c_sh[0][1], 3, ssm_dims(cfg)[1])
+    else:
+        kv, state = c_sh["k"], None
+
+    def split(sh, dim):
+        return dim < len(sh.spec) and "model" in _axes(sh.spec[dim])
+
+    def own(count):
+        return slice(m * count // n, (m + 1) * count // n)
+
+    out = HeadRanges(mesh)
+    if kv is not None and split(kv, 3):
+        out = dataclasses.replace(out, q=own(cfg.n_heads), kv=own(cfg.n_kv_heads))
+    if state is not None and split(state[0], state[1]):
+        out = dataclasses.replace(out, state=own(state[2]))
+    return out if (out.kv or out.state) is not None else None
+
+
 # ---------------------------------------------------------------------------
 # the collectives a step's shardings imply
 # ---------------------------------------------------------------------------
@@ -728,6 +782,14 @@ def _dtensor_api():
 
 def _is_dtensor(x) -> bool:
     return isinstance(x, torch.Tensor) and isinstance(x, _dtensor_api()[0])
+
+
+def is_block_of(x, mesh) -> bool:
+    """Whether ``x`` is a ``DTensor`` block of the rank mesh ``mesh``.
+    DTensor may hand a tensor an equal ``DeviceMesh`` made earlier in the
+    process in place of ``mesh``'s own, so meshes compare equal, not
+    identical."""
+    return _is_dtensor(x) and x.device_mesh == mesh.device_mesh
 
 
 def local(x):

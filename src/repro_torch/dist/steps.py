@@ -193,8 +193,11 @@ class _RankTrainStep:
         return params, new_state, {"loss": loss, "grad_norm": gnorm}
 
 
-def make_prefill_step(cfg) -> Callable:
-    """-> step(params, batch) -> (last-position logits, kv cache)."""
+def make_prefill_step(cfg, mesh=None) -> Callable:
+    """-> step(params, batch) -> (last-position logits, kv cache).  With a
+    rank mesh it is this rank's step (``_RankPrefillStep``)."""
+    if mesh is not None and getattr(mesh, "distributed", False):
+        return _RankPrefillStep(cfg, mesh)
     fam = family_for(cfg)
 
     def step(params, batch):
@@ -203,11 +206,14 @@ def make_prefill_step(cfg) -> Callable:
     return step
 
 
-def make_decode_step(cfg) -> Callable:
+def make_decode_step(cfg, mesh=None) -> Callable:
     """-> step(params, cache, batch) -> (greedy token int32[B], cache).
 
     Greedy sampling stays on the device, so the serving loop moves one
-    int per sequence per step off the device, not the logits."""
+    int per sequence per step off the device, not the logits.  With a
+    rank mesh it is this rank's step (``_RankDecodeStep``)."""
+    if mesh is not None and getattr(mesh, "distributed", False):
+        return _RankDecodeStep(cfg, mesh)
     fam = family_for(cfg)
 
     def step(params, cache, batch):
@@ -215,6 +221,172 @@ def make_decode_step(cfg) -> Callable:
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return step
+
+
+class _RankServeStep:
+    """One rank's prefill or decode step on a rank mesh: the reference's
+    compiled serving cells (prefill ``in_shardings=(param_shardings,
+    input_shardings)``; decode ``(param_shardings, cache_shardings,
+    input_shardings)`` -> ``(tokens over the batch axes,
+    cache_shardings)``) written out.
+
+    ``params`` are ``DTensor`` blocks (``sharding.place_tree`` by
+    ``param_shardings``) and every tensor input this rank's rows
+    (``data.pipeline.shard_batch``).  The family's step runs on the rows
+    with every parameter split over a mesh axis of more than one rank a
+    ``collectives.ShardedLeaf`` (gathered where it is used, one layer at
+    a time) and every other its block, which is the whole leaf.  The
+    tree is built, and the params checked, once per params object.  The
+    cache is kept as its blocks, the
+    rank's rows and, where ``cache_shardings`` splits a head dim over
+    ``model``, its heads (``sharding.head_ranges``): attention then runs
+    head-parallel (its ``wo`` products summed over ``model``), and a
+    recurrent state is all-gathered over ``model`` where it is used and
+    its heads kept.  Outputs are ``DTensor`` blocks: the logits and
+    tokens split over the batch axes, the cache by ``cache_shardings``."""
+
+    def __init__(self, cfg, mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.fam = family_for(cfg)
+        self._params, self._leaves = None, None
+
+    def _tree(self, params):
+        """-> the family's params tree of this rank's blocks (see the
+        class), built when ``params`` is not the last call's."""
+        if params is self._params:
+            return self._leaves
+        from .collectives import ShardedLeaf, _axes
+        from .sharding import is_block_of, local, placements_to_spec
+
+        def leaf(path, p):
+            if not is_block_of(p, self.mesh):
+                raise ValueError(f"param {path!r} is not a block of this rank mesh "
+                                 "(sharding.place_tree)")
+            spec = placements_to_spec(p.placements, self.mesh, p.dim())
+            if all(self.mesh.shape[a] == 1 for e in spec for a in _axes(e)):
+                return local(p)
+            return ShardedLeaf(local(p), spec, self.mesh)
+
+        self._leaves = unflatten((path, leaf(path, p)) for path, p in flatten(as_tree(params)))
+        self._params = params
+        return self._leaves
+
+    def _rows(self, batch) -> Tuple[dict, int]:
+        """-> (this rank's rows of each input, the global batch)."""
+        from .sharding import _is_dtensor, local
+
+        rows, B = {}, None
+        for k, v in batch.items():
+            if isinstance(v, (int, np.integer)):  # a replicated scalar (pos)
+                rows[k] = v
+                continue
+            if not _is_dtensor(v):
+                raise ValueError(f"input {k!r} is not this rank's rows "
+                                 "(data.pipeline.shard_batch on the rank mesh)")
+            if v.dim():
+                B = v.shape[0] if B is None else B
+            rows[k] = local(v).to(self.mesh.device)
+        return rows, B
+
+    def _split_rows(self, t: torch.Tensor, B: int):
+        """This rank's rows ``t`` of a ``[B, ...]`` output -> a ``DTensor``
+        split over the batch axes."""
+        from .sharding import NamedSharding, P, batch_axes, from_block
+
+        spec = P(batch_axes(self.mesh, B), *([None] * (t.dim() - 1)))
+        return from_block(t, NamedSharding(self.mesh, spec), (B, *t.shape[1:]))
+
+    def _blocks(self, cache, shardings, logical):
+        """The family's cache (this rank's blocks as plain tensors) ->
+        ``DTensor`` blocks laid out by ``shardings`` (trees of the cache's
+        structure; ``logical``: tensors of the logical shapes)."""
+        from .sharding import _map_with_path, from_block, local_slices
+
+        sh = _by_path(shardings)
+        full = {path: t.shape for path, t in _by_path(logical).items()}
+
+        def block(path, t):
+            want = torch.empty(full[path], device="meta")[
+                local_slices(full[path], sh[path].spec, self.mesh)].shape
+            if t.shape != want:
+                raise ValueError(f"cache leaf {path}: block {tuple(t.shape)}, but "
+                                 f"{sh[path].spec} gives {tuple(want)} of "
+                                 f"{tuple(full[path])}")
+            return from_block(t, sh[path], full[path])
+
+        return _map_with_path(block, cache)
+
+
+def _by_path(tree) -> dict:
+    """{path: leaf} of a tree (``sharding._map_with_path``'s paths)."""
+    from .sharding import _map_with_path
+
+    out = {}
+    _map_with_path(lambda path, leaf: out.__setitem__(path, leaf), tree)
+    return out
+
+
+class _RankPrefillStep(_RankServeStep):
+    """``make_prefill_step`` on a rank mesh (see ``_RankServeStep``):
+    ``step(params, batch) -> (logits [B, V] split over the batch axes,
+    the cache as blocks of cache_shardings(cfg, mesh, ShapeSpec(decode, B,
+    cache length), cache_specs))``; the cache length is the prompt's
+    (plus the VLM's patches)."""
+
+    def __call__(self, params, batch):
+        from ..configs.base import ShapeSpec
+        from .sharding import cache_shardings, head_ranges
+
+        tree = self._tree(params)
+        rows, B = self._rows(batch)
+        S = rows["tokens"].shape[1] + (self.cfg.n_patches
+                                        if self.cfg.family == "vlm" else 0)
+        shape = ShapeSpec("decode", S, B, "decode")
+        c_specs = self.fam.cache_specs(self.cfg, shape)
+        c_sh = cache_shardings(self.cfg, self.mesh, shape, c_specs)
+        logits, cache = self.fam.prefill(self.cfg, tree, rows,
+                                         heads=head_ranges(self.cfg, self.mesh, c_sh))
+        return (self._split_rows(logits, B),
+                self._blocks(cache, c_sh, c_specs))
+
+
+class _RankDecodeStep(_RankServeStep):
+    """``make_decode_step`` on a rank mesh (see ``_RankServeStep``):
+    ``step(params, cache, batch) -> (greedy tokens int32[B] split over the
+    batch axes, the cache)``.  The cache is the prefill's blocks, written
+    in place and returned as the same layout; ``logits`` is the same step
+    returning the logits [B, V] in place of the tokens."""
+
+    def __call__(self, params, cache, batch):
+        logits, cache, B = self._step(params, cache, batch)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return self._split_rows(tok, B), cache
+
+    def logits(self, params, cache, batch):
+        logits, cache, B = self._step(params, cache, batch)
+        return self._split_rows(logits, B), cache
+
+    def _step(self, params, cache, batch):
+        """-> (this rank's rows of the logits, the cache as blocks, the
+        global batch)."""
+        from .sharding import (NamedSharding, _map_with_path, head_ranges, is_block_of,
+                               local, placements_to_spec)
+
+        tree = self._tree(params)
+        rows, B = self._rows(batch)
+
+        def sharding(path, t):
+            if not is_block_of(t, self.mesh):
+                raise ValueError(f"cache leaf {path} is not a block of this rank mesh "
+                                 "(the rank prefill's cache)")
+            return NamedSharding(self.mesh, placements_to_spec(t.placements, self.mesh,
+                                                               t.dim()))
+
+        c_sh = _map_with_path(sharding, cache)
+        logits, new = self.fam.decode(
+            self.cfg, tree, _map_with_path(lambda _, t: local(t), cache), rows,
+            heads=head_ranges(self.cfg, self.mesh, c_sh))
+        return logits, self._blocks(new, c_sh, cache), B
 
 
 def _as_tensor(x, dtype) -> torch.Tensor:

@@ -7,6 +7,14 @@ CLI serves on a (1, 1) mesh of its device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b-smoke \\
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
+
+On a rank mesh (one process per device, ``make_mesh(...,
+distributed=True)`` after ``launch.mesh.init_distributed``) each rank
+builds the same ``Server``, loads its blocks of the weights
+(``sharding.place_tree`` by ``param_shardings``) and calls ``generate``
+with the same prompts: it prefills and decodes its rows of the batch
+with its heads of the caches (``dist.steps._RankServeStep``) and
+returns the whole batch's tokens.
 """
 
 from __future__ import annotations
@@ -17,11 +25,15 @@ import time
 import numpy as np
 import torch
 
+from ..configs.base import ShapeSpec
 from ..configs.registry import get
+from ..data.pipeline import shard_batch
 from ..device import resolve_device
 from ..dist import sharding as shd
+from ..dist.collectives import gather_full
 from ..dist.steps import make_decode_step, make_prefill_step
 from ..models.api import family_for
+from ..tree import as_tree, flatten
 
 
 class Server:
@@ -30,17 +42,16 @@ class Server:
     capacity is ``prompt_cap + gen_cap``, fixed at construction, so every
     ``generate`` call runs the same shapes whatever the requested token
     count.  ``mesh`` (every tile on ``device``) is installed as the
-    activation mesh, which stays installed after the server is gone."""
+    activation mesh, which stays installed after the server is gone.  On
+    a rank mesh ``device`` defaults to the rank's (see the module
+    docstring)."""
 
     def __init__(self, cfg, mesh=None, *, batch: int, prompt_cap: int,
                  gen_cap: int = 16, device=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.ranks = getattr(mesh, "distributed", False)
+        self.device = mesh.device if self.ranks and device is None else resolve_device(device)
         self.mesh = mesh
-        if getattr(mesh, "distributed", False):
-            raise NotImplementedError(
-                "Server on a rank mesh (one process per card): the caches' "
-                "cache_shardings over ranks are not ported; serve on a logical mesh")
         if mesh is not None:
             on = resolve_device(shd.mesh_device(mesh, "Server"))
             if on != self.device:
@@ -52,12 +63,25 @@ class Server:
         self.prompt_cap = prompt_cap
         self.gen_cap = gen_cap
         self.cache_cap = prompt_cap + gen_cap
-        self.prefill = make_prefill_step(cfg)
-        self.decode = make_decode_step(cfg)
+        self.prefill = make_prefill_step(cfg, mesh)
+        self.decode = make_decode_step(cfg, mesh)
         self.params = None
 
     def load_weights(self, params):
-        """Model swap: pure data movement (the Fig-8 reprogram step)."""
+        """Model swap: pure data movement (the Fig-8 reprogram step).  On a
+        rank mesh ``params`` are this rank's blocks: every leaf a
+        ``DTensor`` of the mesh laid out by ``param_shardings``."""
+        if self.ranks:
+            want = dict(flatten(shd.param_shardings(
+                self.cfg, self.mesh, self.fam.param_specs(self.cfg))))
+            for path, t in flatten(as_tree(params)):
+                if not shd.is_block_of(t, self.mesh):
+                    raise ValueError(f"param {path!r} is not a block of the server's rank "
+                                     "mesh: place it with sharding.place_tree")
+                if path not in want or list(t.placements) != shd.spec_to_placements(
+                        want[path].spec, self.mesh):
+                    raise ValueError(f"param {path!r} is laid out {t.placements}, not "
+                                     "by param_shardings")
         self.params = params
 
     def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
@@ -80,17 +104,36 @@ class Server:
             )
         padded = np.zeros((B, self.cache_cap), np.int32)
         padded[:, :plen] = prompts
-        tokens = torch.from_numpy(padded).to(self.device)
-        logits, cache = self.prefill(self.params, {"tokens": tokens})
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        rows = self._rows(B)
+        logits, cache = self.prefill(self.params, self._inputs(padded))
+        tok = torch.argmax(shd.local(logits), dim=-1).to(torch.int32)[:, None]
         out = [tok]
         for i in range(n_tokens - 1):
             tok, cache = self.decode(
-                self.params, cache, {"token": tok, "pos": plen + i}
+                self.params, cache, {"token": rows(tok), "pos": plen + i}
             )
-            tok = tok[:, None]
+            tok = shd.local(tok)[:, None]
             out.append(tok)
-        return torch.cat(out, dim=1).cpu().numpy()
+        out = torch.cat(out, dim=1)
+        return (gather_full(rows(out)) if self.ranks else out).cpu().numpy()
+
+    def _inputs(self, padded: np.ndarray) -> dict:
+        """The prefill's batch: the padded prompts on the device, or on a
+        rank mesh this rank's rows of them (``shard_batch``)."""
+        if not self.ranks:
+            return {"tokens": torch.from_numpy(padded).to(self.device)}
+        shape = ShapeSpec("prefill", padded.shape[1], padded.shape[0], "prefill")
+        return shard_batch({"tokens": padded}, self.mesh, shd.input_shardings(
+            self.cfg, self.mesh, shape, self.fam.input_specs(self.cfg, shape)))
+
+    def _rows(self, B: int):
+        """-> a function from this rank's rows ``t`` [B_l, n] of a [B, n]
+        tensor to a ``DTensor`` split over the batch axes (a rank mesh);
+        off a rank mesh, the identity."""
+        if not self.ranks:
+            return lambda t: t
+        rows = shd.NamedSharding(self.mesh, shd.P(shd.batch_axes(self.mesh, B), None))
+        return lambda t: shd.from_block(t, rows, (B, t.shape[1]))
 
 
 def main():

@@ -276,6 +276,31 @@ def attn_param_specs(cfg: ArchConfig, dtype=torch.bfloat16) -> AttnParams:
     )
 
 
+def own_heads(p: AttnParams, cfg: ArchConfig, heads) -> Tuple[AttnParams, int, int]:
+    """-> (the weights of ``heads``' query and KV heads: the columns of
+    ``wq``, ``wk``, ``wv`` and the rows of ``wo``; its query and KV head
+    counts).  ``heads`` is a ``dist.sharding.HeadRanges`` or None (all
+    heads: ``p`` itself)."""
+    if heads is None or heads.kv is None:
+        return p, cfg.n_heads, cfg.n_kv_heads
+    hd, q, kv = cfg.head_dim, heads.q, heads.kv
+    cols_q, cols_kv = slice(q.start * hd, q.stop * hd), slice(kv.start * hd, kv.stop * hd)
+    return (AttnParams(p.wq[:, cols_q], p.wk[:, cols_kv], p.wv[:, cols_kv], p.wo[cols_q]),
+            q.stop - q.start, kv.stop - kv.start)
+
+
+def heads_out(out: torch.Tensor, wo: torch.Tensor, heads) -> torch.Tensor:
+    """The attention output ``out`` [B, S, H*hd] times ``wo`` [H*hd, D];
+    with ``heads`` splitting the heads over ``model``, each rank's product
+    over its own heads, summed over ``model`` (an all-reduce)."""
+    y = torch.einsum("bsh,hd->bsd", out, wo)
+    if heads is None or heads.kv is None:
+        return y
+    from ..dist.collectives import from_model_region  # deferred: dist imports models
+
+    return from_model_region(y, heads.mesh)
+
+
 def attention_block(
     p: AttnParams,
     x: torch.Tensor,  # [B, S, D]
@@ -286,6 +311,7 @@ def attention_block(
     window: int = 0,
     cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # decode
     cache_pos: Optional[int] = None,  # decode: write index
+    heads=None,  # dist.sharding.HeadRanges: this rank's heads (a rank mesh)
 ):
     """Self-attention with optional KV cache read/write.
 
@@ -294,9 +320,15 @@ def attention_block(
     them).  As ``jax.lax.dynamic_update_slice`` does, the write start is
     clamped to ``[0, Smax - S]`` while ``q_offset`` and ``kv_len`` keep
     the unclamped ``cache_pos``.
+
+    With ``heads`` (its ``kv`` range set) the block is head-parallel over
+    the mesh's ``model`` axis: the rank projects its own query and KV
+    heads, keeps (or writes into its cache block) its own k and v,
+    attends over them and sums ``out @ wo[its rows]`` over ``model``.
     """
     B, S, D = x.shape
-    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    p, Hq, Hkv = own_heads(p, cfg, heads)
     q = torch.einsum("bsd,dh->bsh", x, p.wq).reshape(B, S, Hq, hd)
     k = torch.einsum("bsd,dh->bsh", x, p.wk).reshape(B, S, Hkv, hd)
     v = torch.einsum("bsd,dh->bsh", x, p.wv).reshape(B, S, Hkv, hd)
@@ -316,8 +348,7 @@ def attention_block(
             kv_len=cache_pos + S,
         )
         kv = (kc, vc)
-    out = torch.einsum("bsh,hd->bsd", out.reshape(B, S, Hq * hd), p.wo)
-    return out, kv
+    return heads_out(out.reshape(B, S, Hq * hd), p.wo, heads), kv
 
 
 # ---------------------------------------------------------------------------

@@ -90,12 +90,13 @@ def _ffn(p_layer: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig) -> torch.Ten
     return torch.einsum("bsf,fd->bsd", F.silu(g) * u, m["w_down"])
 
 
-def _layer(p, h, cfg: ArchConfig, positions, cache_kv=None, cache_pos=None):
-    """-> (h, kv) of one layer."""
+def _layer(p, h, cfg: ArchConfig, positions, cache_kv=None, cache_pos=None,
+           heads=None):
+    """-> (h, kv) of one layer (``heads``: ``attention_block``'s)."""
     a_in = rms_norm(h, p["attn_norm"])
     attn_out, kv = attention_block(
         AttnParams(**p["attn"]), a_in, cfg, positions=positions, causal=True,
-        window=cfg.window, cache_kv=cache_kv, cache_pos=cache_pos,
+        window=cfg.window, cache_kv=cache_kv, cache_pos=cache_pos, heads=heads,
     )
     h = h + attn_out
     f_in = rms_norm(h, p["mlp_norm"])
@@ -133,13 +134,16 @@ def loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
 
 
 @torch.no_grad()
-def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
-    """-> (last-position logits [B, V], kv cache [L, B, S, Hkv, hd] x2)."""
+def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,
+            heads=None):
+    """-> (last-position logits [B, V], kv cache [L, B, S, Hkv, hd] x2).
+    ``heads`` (a ``dist.sharding.HeadRanges``, one rank of a rank mesh):
+    attention runs head-parallel and the cache holds the rank's KV heads."""
     params = as_tree(params)
     h = _embed_inputs(params, batch, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     h, caches = stack_apply_collect(
-        lambda p, hh: _layer(p, hh, cfg, positions), params["layers"], h
+        lambda p, hh: _layer(p, hh, cfg, positions, heads=heads), params["layers"], h
     )
     h = rms_norm(h, params["final_norm"])
     logits = lm_logits(h[:, -1], params["embed"])
@@ -148,16 +152,17 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
 
 @torch.no_grad()
 def decode(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor],
-           batch: Dict[str, Any]):
+           batch: Dict[str, Any], *, heads=None):
     """One-token step.  batch: token [B, 1], pos (an int or a 0-d
-    tensor).  The cache is donated: written in place and returned."""
+    tensor).  The cache is donated: written in place and returned.
+    ``heads``: as in ``prefill`` (the cache is the rank's heads)."""
     params = as_tree(params)
     h = embed_lookup(params["embed"], batch["token"])  # [B, 1, D]
     pos = int(batch["pos"])
     positions = torch.full((1,), pos, device=h.device)
 
     def layer_fn(p, hh, c):
-        return _layer(p, hh, cfg, positions, cache_kv=c, cache_pos=pos)
+        return _layer(p, hh, cfg, positions, cache_kv=c, cache_pos=pos, heads=heads)
 
     h, (k_new, v_new) = stack_apply_with_state(
         layer_fn, params["layers"], h, (cache["k"], cache["v"])

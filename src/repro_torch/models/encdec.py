@@ -33,9 +33,11 @@ from .common import (
     checkpointed,
     embed_lookup,
     gqa_attention,
+    heads_out,
     init_from_specs,
     lm_logits,
     meta,
+    own_heads,
     rms_norm,
     stack_apply,
     stack_apply_collect,
@@ -103,34 +105,37 @@ class Whisper:
     # -- decoder ------------------------------------------------------------
 
     @staticmethod
-    def _cross(cfg, p, hh, enc_kv):
+    def _cross(cfg, p, hh, enc_kv, heads=None):
+        """Cross-attention against ``enc_kv`` (its heads ``heads``' KV heads:
+        head-parallel over ``model``, as ``attention_block``)."""
         B, S, D = hh.shape
-        Hq, hd = cfg.n_heads, cfg.head_dim
+        hd = cfg.head_dim
+        w, Hq, _ = own_heads(AttnParams(**p["cross_attn"]), cfg, heads)
         a_in = rms_norm(hh, p["cross_norm"])
-        q = torch.einsum("bsd,dh->bsh", a_in, p["cross_attn"]["wq"]).reshape(B, S, Hq, hd)
+        q = torch.einsum("bsd,dh->bsh", a_in, w.wq).reshape(B, S, Hq, hd)
         k, v = enc_kv
         out = gqa_attention(q, k, v, causal=False)
-        out = torch.einsum("bsh,hd->bsd", out.reshape(B, S, Hq * hd),
-                           p["cross_attn"]["wo"])
-        return hh + out
+        return hh + heads_out(out.reshape(B, S, Hq * hd), w.wo, heads)
 
     @staticmethod
-    def _enc_kv(cfg, p, enc: torch.Tensor):
+    def _enc_kv(cfg, p, enc: torch.Tensor, heads=None):
         B, Se, D = enc.shape
-        Hkv, hd = cfg.n_kv_heads, cfg.head_dim
-        k = torch.einsum("bsd,dh->bsh", enc, p["cross_attn"]["wk"]).reshape(B, Se, Hkv, hd)
-        v = torch.einsum("bsd,dh->bsh", enc, p["cross_attn"]["wv"]).reshape(B, Se, Hkv, hd)
+        w, _, Hkv = own_heads(AttnParams(**p["cross_attn"]), cfg, heads)
+        hd = cfg.head_dim
+        k = torch.einsum("bsd,dh->bsh", enc, w.wk).reshape(B, Se, Hkv, hd)
+        v = torch.einsum("bsd,dh->bsh", enc, w.wv).reshape(B, Se, Hkv, hd)
         return k, v
 
     @staticmethod
-    def _dec_layer(cfg, p, hh, enc, positions):
+    def _dec_layer(cfg, p, hh, enc, positions, heads=None):
         """-> (hh, fresh (k, v)) of one decoder layer over the whole
         sequence."""
         a_in = rms_norm(hh, p["self_norm"])
         out, kv = attention_block(
             AttnParams(**p["self_attn"]), a_in, cfg, positions=positions, causal=True,
+            heads=heads,
         )
-        hh = Whisper._cross(cfg, p, hh + out, Whisper._enc_kv(cfg, p, enc))
+        hh = Whisper._cross(cfg, p, hh + out, Whisper._enc_kv(cfg, p, enc, heads), heads)
         return _gelu_mlp(p, hh), kv
 
     @staticmethod
@@ -150,16 +155,19 @@ class Whisper:
 
     @staticmethod
     @torch.no_grad()
-    def prefill(cfg: ArchConfig, params, batch):
+    def prefill(cfg: ArchConfig, params, batch, *, heads=None):
         """-> (last-position logits, {"k", "v": self KV [L, B, S, Hkv, hd],
-        "ck", "cv": cross KV [L, B, encoder_len, Hkv, hd]})."""
+        "ck", "cv": cross KV [L, B, encoder_len, Hkv, hd]}).  ``heads`` (a
+        ``dist.sharding.HeadRanges``): the decoder's self- and
+        cross-attention run head-parallel and the caches hold the rank's
+        KV heads; the encoder runs whole."""
         params = as_tree(params)
         enc = Whisper.encode(cfg, params, batch["frames"], remat=False)
         tokens = batch["tokens"]
         h = embed_lookup(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=h.device)
         h, kv = stack_apply_collect(
-            lambda p, hh: Whisper._dec_layer(cfg, p, hh, enc, positions),
+            lambda p, hh: Whisper._dec_layer(cfg, p, hh, enc, positions, heads),
             params["decoder"], h,
         )
         h = rms_norm(h, params["dec_final_norm"])
@@ -167,15 +175,21 @@ class Whisper:
         B, Se, _ = enc.shape
         L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
         ca = params["decoder"]["cross_attn"]
-        ck, cv = (torch.einsum("bsd,ldh->lbsh", enc, ca[w]).reshape(L, B, Se, Hkv, hd)
-                  for w in ("wk", "wv"))
+        ws = [ca["wk"], ca["wv"]]
+        if heads is not None and heads.kv is not None:
+            cols = slice(heads.kv.start * hd, heads.kv.stop * hd)
+            ws = [w[:, :, cols] for w in ws]
+            Hkv = heads.kv.stop - heads.kv.start
+        ck, cv = (torch.einsum("bsd,ldh->lbsh", enc, w).reshape(L, B, Se, Hkv, hd)
+                  for w in ws)
         cache = {"k": kv[0], "v": kv[1], "ck": ck, "cv": cv}
         return lm_logits(h[:, -1], params["embed"]), cache
 
     @staticmethod
     @torch.no_grad()
-    def decode(cfg: ArchConfig, params, cache, batch):
-        """One-token step; the self KV cache is written in place."""
+    def decode(cfg: ArchConfig, params, cache, batch, *, heads=None):
+        """One-token step; the self KV cache is written in place.
+        ``heads``: as in ``prefill``."""
         params = as_tree(params)
         h = embed_lookup(params["embed"], batch["token"])
         pos = int(batch["pos"])
@@ -186,10 +200,10 @@ class Whisper:
             a_in = rms_norm(hh, p["self_norm"])
             out, (kc, vc) = attention_block(
                 AttnParams(**p["self_attn"]), a_in, cfg, positions=positions,
-                causal=True, cache_kv=(kc, vc), cache_pos=pos,
+                causal=True, cache_kv=(kc, vc), cache_pos=pos, heads=heads,
             )
             # cross-attention against the cached encoder KV
-            hh = Whisper._cross(cfg, p, hh + out, (ck, cv))
+            hh = Whisper._cross(cfg, p, hh + out, (ck, cv), heads)
             return _gelu_mlp(p, hh), (kc, vc)
 
         h, (k_new, v_new) = stack_apply_with_state(

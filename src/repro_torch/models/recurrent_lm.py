@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig, ShapeSpec
 from ..tree import as_tree
 from .common import (
+    AttnParams,
     LMParams,
     NEG,
     attn_param_specs,
@@ -34,9 +35,11 @@ from .common import (
     checkpointed,
     embed_lookup,
     gqa_attention,
+    heads_out,
     init_from_specs,
     lm_logits,
     meta,
+    own_heads,
     rms_norm,
     rope,
     stack_apply,
@@ -73,6 +76,25 @@ def _scan_states(step, x: torch.Tensor, state0):
         y, state = step(x[:, t:t + 1], state)
         ys.append(y)
     return torch.cat(ys, dim=1), state
+
+
+def all_states(state, heads):
+    """A layer's recurrent state blocks [B, H_rank, ...] -> every head
+    [B, H, ...], all-gathered over ``model`` (``heads.state`` set); else
+    the state itself."""
+    if heads is None or heads.state is None:
+        return state
+    from ..dist.collectives import all_gather  # deferred: dist imports models
+
+    return tuple(all_gather(t, heads.mesh, "model", 1) for t in state)
+
+
+def own_state(state, heads):
+    """A layer's recurrent state of every head [B, H, ...] -> this rank's
+    heads ``heads.state`` (dim 1); else the state itself."""
+    if heads is None or heads.state is None:
+        return state
+    return tuple(t[:, heads.state] for t in state)
 
 
 # ===========================================================================
@@ -126,10 +148,12 @@ class XLSTM:
 
     @staticmethod
     @torch.no_grad()
-    def prefill(cfg: ArchConfig, params, batch):
+    def prefill(cfg: ArchConfig, params, batch, *, heads=None):
         """-> (last-position logits, ((C, n, m), (c, n, m, h)) stacked over
         the pairs): each block runs its decode step over the prompt, so
-        the outputs and the final states come from one scan."""
+        the outputs and the final states come from one scan.  ``heads``
+        (a ``dist.sharding.HeadRanges`` with ``state`` set): the mLSTM
+        states keep the rank's heads."""
         params = as_tree(params)
         h = embed_lookup(params["embed"], batch["tokens"])
         B, S, D = h.shape
@@ -143,7 +167,7 @@ class XLSTM:
             ys, sc = _scan_states(
                 lambda xt, c: slstm_decode_step(p["s"], xt, c, cfg),
                 rms_norm(hh, p["s_norm"]), slstm_state0(B, D, hh.dtype, hh.device))
-            return hh + ys, (mc, sc)
+            return hh + ys, (own_state(mc, heads), sc)
 
         h, caches = stack_apply_collect(pair_fn, params["pairs"], h)
         h = rms_norm(h, params["final_norm"])
@@ -151,15 +175,19 @@ class XLSTM:
 
     @staticmethod
     @torch.no_grad()
-    def decode(cfg: ArchConfig, params, cache, batch):
+    def decode(cfg: ArchConfig, params, cache, batch, *, heads=None):
         """One-token step; ``batch["pos"]`` is not read (the state carries
-        the position).  The cache is written in place and returned."""
+        the position).  The cache is written in place and returned.
+        ``heads``: as in ``prefill``; each pair's mLSTM state block is
+        all-gathered over ``model`` where it is used, its heads kept."""
         params = as_tree(params)
         h = embed_lookup(params["embed"], batch["token"])  # [B,1,D]
 
         def pair_fn(p, hh, c):
             mc, sc = c
-            y, mc = mlstm_decode_step(p["m"], rms_norm(hh, p["m_norm"]), mc, cfg)
+            y, mc = mlstm_decode_step(p["m"], rms_norm(hh, p["m_norm"]),
+                                      all_states(mc, heads), cfg)
+            mc = own_state(mc, heads)
             hh = hh + y
             y, sc = slstm_decode_step(p["s"], rms_norm(hh, p["s_norm"]), sc, cfg)
             return hh + y, (mc, sc)
@@ -235,19 +263,29 @@ class Zamba2:
         return hh + torch.einsum("bsf,fd->bsd", F.silu(g) * u, m["w_down"])
 
     @staticmethod
-    def _shared_attn(cfg, shared, hh, positions, window):
-        """-> (hh after the shared attention and MLP, (k, v))."""
+    def _qkv(cfg, shared, a_in, positions, heads):
+        """-> (q, k, v) of the shared attention's heads (``heads``' own
+        heads: ``common.own_heads``), RoPE applied, and its weights."""
+        B, S, D = a_in.shape
+        hd = cfg.head_dim
+        w, Hq, Hkv = own_heads(AttnParams(**shared["attn"]), cfg, heads)
+        q = torch.einsum("bsd,dh->bsh", a_in, w.wq).reshape(B, S, Hq, hd)
+        k = torch.einsum("bsd,dh->bsh", a_in, w.wk).reshape(B, S, Hkv, hd)
+        v = torch.einsum("bsd,dh->bsh", a_in, w.wv).reshape(B, S, Hkv, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        return q, k, v, w
+
+    @staticmethod
+    def _shared_attn(cfg, shared, hh, positions, window, heads=None):
+        """-> (hh after the shared attention and MLP, (k, v)); with
+        ``heads``, head-parallel over ``model`` (k and v: the rank's
+        heads)."""
         a_in = rms_norm(hh, shared["attn_norm"])
         B, S, D = a_in.shape
-        Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        a = shared["attn"]
-        q = torch.einsum("bsd,dh->bsh", a_in, a["wq"]).reshape(B, S, Hq, hd)
-        k = torch.einsum("bsd,dh->bsh", a_in, a["wk"]).reshape(B, S, Hkv, hd)
-        v = torch.einsum("bsd,dh->bsh", a_in, a["wv"]).reshape(B, S, Hkv, hd)
-        q = rope(q, positions[None], cfg.rope_theta)
-        k = rope(k, positions[None], cfg.rope_theta)
+        q, k, v, w = Zamba2._qkv(cfg, shared, a_in, positions[None], heads)
         out = gqa_attention(q, k, v, causal=True, window=window)
-        out = torch.einsum("bsh,hd->bsd", out.reshape(B, S, Hq * hd), a["wo"])
+        out = heads_out(out.reshape(B, S, q.shape[2] * cfg.head_dim), w.wo, heads)
         return Zamba2._mlp(shared, hh + out), (k, v)
 
     @staticmethod
@@ -277,10 +315,13 @@ class Zamba2:
 
     @staticmethod
     @torch.no_grad()
-    def prefill(cfg: ArchConfig, params, batch):
+    def prefill(cfg: ArchConfig, params, batch, *, heads=None):
         """Prefill producing decode caches: each mamba layer's output from
         the chunked form and its state from a decode-step scan over the
-        prompt, and the shared attention's last ``W`` keys and values."""
+        prompt, and the shared attention's last ``W`` keys and values.
+        ``heads`` (a ``dist.sharding.HeadRanges``): the shared attention
+        runs head-parallel, and the ring buffer and the SSM states keep
+        the rank's heads."""
         params = as_tree(params)
         h = embed_lookup(params["embed"], batch["tokens"])
         B, S, D = h.shape
@@ -296,14 +337,14 @@ class Zamba2:
                             device=hx.device),
                 torch.zeros((B, H, N, P_), dtype=torch.float32, device=hx.device),
             )
-            _, c_fin = _scan_states(
+            _, (conv, state) = _scan_states(
                 lambda xt, c: ssm_decode_step(p["ssm"], xt, c, cfg), x_in, c0)
-            return hx + y, c_fin
+            return hx + y, (conv, *own_state((state,), heads))
 
         def group_fn(g_params, hh):
             hh, m_caches = stack_apply_collect(m_step, g_params, hh)
             hh, (k, v) = Zamba2._shared_attn(cfg, params["shared"], hh, positions,
-                                             cfg.window)
+                                             cfg.window, heads)
             # ring buffer of absolute-rope keys
             return hh, (m_caches, (k[:, -W:], v[:, -W:]))
 
@@ -313,20 +354,24 @@ class Zamba2:
 
     @staticmethod
     @torch.no_grad()
-    def decode(cfg: ArchConfig, params, cache, batch):
+    def decode(cfg: ArchConfig, params, cache, batch, *, heads=None):
         """One-token step against the ring buffer (slot ``pos mod W``); the
-        cache is written in place and returned."""
+        cache is written in place and returned.  ``heads``: as in
+        ``prefill``; each mamba layer's SSM state block is all-gathered
+        over ``model`` where it is used, its heads kept."""
         params = as_tree(params)
         h = embed_lookup(params["embed"], batch["token"])  # [B,1,D]
         pos = int(batch["pos"])
         B = h.shape[0]
-        Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        hd = cfg.head_dim
         sh = params["shared"]
         positions = torch.full((1, 1), pos, device=h.device)
 
         def m_step(p, hx, c):
-            y, c2 = ssm_decode_step(p["ssm"], rms_norm(hx, p["norm"]), c, cfg)
-            return hx + y, c2
+            conv, state = c
+            y, (conv, state) = ssm_decode_step(p["ssm"], rms_norm(hx, p["norm"]),
+                                               (conv, *all_states((state,), heads)), cfg)
+            return hx + y, (conv, *own_state((state,), heads))
 
         def group_fn(g_params, hh, g_cache):
             m_caches, (kc, vc) = g_cache
@@ -334,11 +379,8 @@ class Zamba2:
             hh, m_new = stack_apply_with_state(m_step, g_params, hh, m_caches)
             # shared attention against the ring buffer
             a_in = rms_norm(hh, sh["attn_norm"])
-            q = torch.einsum("bsd,dh->bsh", a_in, sh["attn"]["wq"]).reshape(B, 1, Hq, hd)
-            k = torch.einsum("bsd,dh->bsh", a_in, sh["attn"]["wk"]).reshape(B, 1, Hkv, hd)
-            v = torch.einsum("bsd,dh->bsh", a_in, sh["attn"]["wv"]).reshape(B, 1, Hkv, hd)
-            q = rope(q, positions, cfg.rope_theta)
-            k = rope(k, positions, cfg.rope_theta)
+            q, k, v, w = Zamba2._qkv(cfg, sh, a_in, positions, heads)
+            Hq, Hkv = q.shape[2], k.shape[2]
             slot = pos % W
             kc[:, slot] = k[:, 0].to(kc.dtype)
             vc[:, slot] = v[:, 0].to(vc.dtype)
@@ -350,7 +392,7 @@ class Zamba2:
             scores = torch.where(valid, scores, NEG)
             probs = torch.softmax(scores, dim=-1).to(hh.dtype)
             out = torch.einsum("bhrqk,bkhd->bqhrd", probs, vc).reshape(B, 1, Hq * hd)
-            hh = hh + torch.einsum("bsh,hd->bsd", out, sh["attn"]["wo"])
+            hh = hh + heads_out(out, w.wo, heads)
             return Zamba2._mlp(sh, hh), (m_new, (kc, vc))
 
         h, cache = stack_apply_with_state(group_fn, params["mamba"], h, cache)
