@@ -33,6 +33,7 @@ devices (``dist.make_mesh``).
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Dict, Optional, Protocol, runtime_checkable
 
 import numpy as np
@@ -141,6 +142,10 @@ class EngineBase:
     # engines whose reprogram consumes the DecodedPlan set this; the base
     # decodes the stream once and shares it between validation and _program
     needs_decoded_plan = False
+    # a caller that times the device wait (the scheduler, while a profile
+    # runs) puts a list here; ``_to_host`` appends the stamp at which the
+    # wait began
+    sync_marks: Optional[list] = None
 
     def __init__(self, plan: CapacityPlan, device=None):
         self.plan = plan
@@ -202,6 +207,14 @@ class EngineBase:
 
     def class_sums(self, prog: Dict[str, Any], x: np.ndarray) -> np.ndarray:
         raise NotImplementedError
+
+    def _to_host(self, sums: torch.Tensor) -> np.ndarray:
+        """The engine's result on the host.  The copy waits for the
+        device, so the launches end and the wait begins here."""
+        marks = self.sync_marks
+        if marks is not None:
+            marks.append((time.perf_counter_ns(), time.thread_time_ns()))
+        return sums.cpu().numpy()
 
     def compile_cache_size(self) -> int:
         return len(self._signatures)

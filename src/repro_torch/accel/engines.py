@@ -90,7 +90,7 @@ class InterpEngine(EngineBase):
                 prog["imem"], prog["n_inst"], packed, B, prog["wmem"],
                 m_cap=p.class_capacity,
             )
-            return sums[: prog["n_classes"], :B].T.cpu().numpy()
+            return self._to_host(sums[: prog["n_classes"], :B].T)
 
 
 @register_engine("plan", priority=20)
@@ -140,7 +140,7 @@ class PlanEngine(EngineBase):
                 *operands, n_clause_cap=p.clause_total_capacity,
                 m_cap=p.class_capacity,
             )
-            return sums[:B, : prog["n_classes"]].cpu().numpy()
+            return self._to_host(sums[:B, : prog["n_classes"]])
 
 
 @register_engine("sharded", needs_mesh=True, priority=5)
@@ -209,7 +209,7 @@ class ShardedEngine(EngineBase):
                 *(t for pair in tables.values() for t in pair), packed1
             )
             sums = self._fn.packed(tables, packed1)
-            return sums[:B, : prog["n_classes"]].cpu().numpy()
+            return self._to_host(sums[:B, : prog["n_classes"]])
 
 
 @register_engine("popcount", priority=30)
@@ -275,4 +275,4 @@ class PopcountEngine(EngineBase):
             )
             # the device-to-host copy waits for the kernel, so the staging
             # block is free for the next batch when this returns
-            return sums[: prog["n_classes"], :B].T.cpu().numpy()
+            return self._to_host(sums[: prog["n_classes"], :B].T)

@@ -29,6 +29,22 @@ batcher, the continuous-batching scheduler and metrics (``serve_tm``).
 ``start()``/``stop()`` run the scheduler loop and ``async_submit(slot, x,
 priority=, timeout_ms=)`` serves admission-controlled deadline-aware
 traffic without anyone calling ``flush()``.
+
+Where the host's time goes: run ``torch.profiler`` as for a device
+trace.  While it runs, the served path logs spans (the front door, each
+request, each batch tiled by its lock wait, fill, launch, device wait
+and demux, the loop's idle wait and its yield between batches) into
+``acc.metrics``.  Afterwards ``acc.metrics.spans()`` returns them on the
+``time.perf_counter_ns()`` clock, and subtracting
+``acc.metrics.profiler_offset_ns()`` from a profiler event's
+``start_ns()`` puts the device trace beside them::
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ...                                  # serve
+    spans = acc.metrics.spans()              # numpy records, by id
+    offset = acc.metrics.profiler_offset_ns()
+    device = [(e.start_ns() - offset, e.end_ns() - offset)
+              for e in prof.profiler.kineto_results.events()]
 """
 
 from __future__ import annotations

@@ -352,6 +352,7 @@ class Batcher:
         slot: str,
         out: Optional[np.ndarray] = None,
         now: Optional[float] = None,
+        marks: Optional[list] = None,
     ) -> Tuple[np.ndarray, List[Span]]:
         """Pop up to ``batch_capacity`` rows off the slot's lanes.
 
@@ -369,8 +370,14 @@ class Batcher:
         — no per-batch concatenate/allocation — the remainder of ``out``
         is zeroed (the engines consume one fixed zero-padded operand
         shape), and the returned block is the view ``out[:rows, :F]``.
+
+        With ``marks`` (a list), the host and thread-CPU stamp at which
+        the lock was taken is appended to it: the wait ends, the fill
+        begins.
         """
         with self.lock:
+            if marks is not None:
+                marks.append((time.perf_counter_ns(), time.thread_time_ns()))
             lanes = self._lanes.get(slot)
             if not lanes or not any(lanes[p] for p in PRIORITIES):
                 raise ValueError(f"no pending requests for slot {slot!r}")

@@ -25,18 +25,83 @@ same keys as the reference package's:
                                                 (completed + shed); 1.0
                                                 when nothing carried a
                                                 deadline
+
+Latencies are kept for the most recent ``LATENCY_WINDOW`` completions of
+each lane, so a long-lived server holds a bounded history;
+``request_latency_us`` is taken over all lanes' windows.
+
+The span log.  While a ``torch.profiler`` session runs anywhere in the
+process, the served path records spans into a fixed ring (``SPAN_NAMES``:
+the front door, each request, each batch and the five steps that tile
+it, the loop's idle wait and its yield between batches), each with its
+start and end on the ``time.perf_counter_ns()`` clock, the thread's CPU
+nanoseconds over it, its id and its parent's id; ``spans()`` returns
+them and ``profiler_offset_ns()`` maps them onto the profiler's clock.
+With no profiler running the served path reads one module flag per
+submit, batch and loop turn, and records nothing; the ring is allocated
+the first time a span is recorded.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import enum
+import itertools
+import threading
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+# ``torch_profiler._is_profiler_enabled`` is the served path's switch: the
+# module flag that every thread sees while a profile runs (the C++ check,
+# ``torch.autograd._profiler_enabled()``, is false on threads other than
+# the one that started the profiler, such as the scheduler's)
+from torch.autograd import profiler as torch_profiler  # noqa: F401
 
 from .batching import PRIORITIES
 
+LATENCY_WINDOW = 65536  # completions kept per lane for the percentiles
 
-def _pcts(xs: List[float]) -> Dict[str, float]:
+
+class Span(enum.IntEnum):
+    """What a span times (``SPAN_NAMES[span]`` is its name)."""
+
+    FRONT_DOOR = 0  # submit, entry to return: checks, handle, enqueue, wake
+    REQUEST = 1     # a request, enqueue to completion; parent: its batch
+    BATCH = 2       # Scheduler.run_slot_batch, the whole body
+    LOCK_WAIT = 3   # the scheduler's lock, then the batcher's in next_batch
+    FILL = 4        # next_batch's zero-fill and row copies into staging
+    LAUNCH = 5      # the engine call up to its device-to-host copy
+    SYNC = 6        # the device-to-host copy of the sums: the device wait
+    DEMUX = 7       # argmax, demux, the lanes' bookkeeping, recompile check
+    LOOP_WAIT = 8   # the loop waiting for a wake or its window, no batch due
+    LOOP_YIELD = 9  # the loop's yield between back-to-back batches: the
+                    # submitters' wake callbacks and the interpreter's lock
+
+
+SPAN_NAMES = (
+    "front_door", "request", "batch", "batch.lock_wait", "batch.fill",
+    "batch.launch", "batch.sync", "batch.demux", "loop.wait", "loop.yield",
+)
+SPAN_CAPACITY = 1 << 20  # ring entries: 7 int64 columns, 56 MiB
+# one ring row: name, start_ns, end_ns, cpu_ns, parent, tag, arg; a span's
+# id is the count of spans recorded before it, so it needs no column
+SPAN_DTYPE = np.dtype([
+    ("id", np.int64), ("name", "U15"), ("start_ns", np.int64),
+    ("end_ns", np.int64), ("cpu_ns", np.int64), ("parent", np.int64),
+    ("tag", np.int64), ("arg", np.int64),
+])
+
+Stamp = Tuple[int, int]  # (perf_counter_ns, thread_time_ns)
+
+
+def stamp() -> Stamp:
+    """Now, on the host clock and on this thread's CPU clock: one end of
+    a span."""
+    return time.perf_counter_ns(), time.thread_time_ns()
+
+
+def _pcts(xs: Sequence[float]) -> Dict[str, float]:
     if not xs:
         return {"p50": 0.0, "p95": 0.0, "p99": 0.0}
     a = np.asarray(xs)
@@ -47,7 +112,7 @@ def _pcts(xs: List[float]) -> Dict[str, float]:
     }
 
 
-def _pcts2(xs: List[float]) -> Dict[str, float]:
+def _pcts2(xs: Sequence[float]) -> Dict[str, float]:
     if not xs:
         return {"p50": 0.0, "p99": 0.0}
     a = np.asarray(xs)
@@ -72,8 +137,8 @@ class ServeMetrics:
         self.failovers = 0       # requests served after another node failed
         self.quarantines = 0     # circuit-breaker opened on this node
         self.probes = 0          # half-open probes admitted to this node
+        # a list, not a bounded window: the benchmark reads it by index
         self.engine_s: List[float] = []
-        self.request_latency_s: List[float] = []
         self.swap_s: List[float] = []
         self.recal_train_s: List[float] = []
         self.recal_compress_s: List[float] = []
@@ -83,8 +148,21 @@ class ServeMetrics:
         self.lane_rejected = {p: 0 for p in PRIORITIES}
         self.lane_deadline_miss = {p: 0 for p in PRIORITIES}
         self.lane_in_slo = {p: 0 for p in PRIORITIES}
-        self.lane_queue_delay_s = {p: [] for p in PRIORITIES}
-        self.lane_latency_s = {p: [] for p in PRIORITIES}
+        self.lane_queue_delay_s: Dict[str, Deque[float]] = {
+            p: deque(maxlen=LATENCY_WINDOW) for p in PRIORITIES
+        }
+        self.lane_latency_s: Dict[str, Deque[float]] = {
+            p: deque(maxlen=LATENCY_WINDOW) for p in PRIORITIES
+        }
+        # the span log (see the module docstring)
+        self.span_capacity = SPAN_CAPACITY
+        self._ring: Optional[np.ndarray] = None
+        self._spans_written = 0
+        self._span_lock = threading.Lock()
+        self.spans_dropped_until_ns = -1  # latest end among overwritten spans
+        # (perf_counter_ns, profiler_offset_ns()) of each reading: the
+        # first when the first span was recorded, then one per read
+        self.span_offsets_ns: List[Tuple[int, int]] = []
 
     def record_batch(
         self, rows: int, capacity: int, elapsed_s: float, completed: int
@@ -94,9 +172,6 @@ class ServeMetrics:
         self.padded_rows += capacity
         self.engine_s.append(elapsed_s)
         self.requests_completed += completed
-
-    def record_request_latency(self, latency_s: float) -> None:
-        self.request_latency_s.append(latency_s)
 
     def record_lane_completion(
         self,
@@ -152,6 +227,83 @@ class ServeMetrics:
     def record_probe(self) -> None:
         """A half-open probe request was admitted to this node."""
         self.probes += 1
+
+    # -- the span log --------------------------------------------------------
+
+    def record_span(
+        self, name: Span, a: Stamp, b: Stamp, parent: int = -1,
+        tag: int = -1, arg: int = 0,
+    ) -> int:
+        """Log span ``name`` from stamp ``a`` to stamp ``b`` (``stamp()``;
+        a span that crosses threads passes CPU stamps of 0); returns its
+        id.  ``tag`` is the request's rid or the batch's sequence number,
+        ``arg`` a count the span carries (rows, bytes written).  Past
+        ``span_capacity`` spans the oldest is overwritten and counted in
+        ``spans_dropped``."""
+        with self._span_lock:
+            ring = self._ring
+            if ring is None:
+                ring = self._ring = np.empty(
+                    (self.span_capacity, len(SPAN_DTYPE) - 1), np.int64
+                )
+                self.profiler_offset_ns()
+            i = self._spans_written
+            self._spans_written = i + 1
+            j = i % len(ring)
+            if i >= len(ring):
+                self.spans_dropped_until_ns = max(
+                    self.spans_dropped_until_ns, int(ring[j, 2])
+                )
+            ring[j] = (name, a[0], b[0], b[1] - a[1], parent, tag, arg)
+        return i
+
+    @property
+    def spans_dropped(self) -> int:
+        """Spans overwritten by newer ones since the ring was allocated."""
+        if self._ring is None:
+            return 0
+        return max(0, self._spans_written - len(self._ring))
+
+    def spans(
+        self, lo_ns: Optional[int] = None, hi_ns: Optional[int] = None
+    ) -> np.ndarray:
+        """The logged spans that start in ``[lo_ns, hi_ns]`` (host clock,
+        ``time.perf_counter_ns()``; None: unbounded), by id, as a
+        ``SPAN_DTYPE`` array."""
+        with self._span_lock:
+            n = self._spans_written
+            if self._ring is None or n == 0:
+                return np.empty(0, SPAN_DTYPE)
+            ids = np.arange(max(0, n - len(self._ring)), n)
+            rows = self._ring[ids % len(self._ring)]
+        out = np.empty(ids.size, SPAN_DTYPE)
+        out["id"] = ids
+        out["name"] = np.asarray(SPAN_NAMES)[rows[:, 0]]
+        for j, field in enumerate(SPAN_DTYPE.names[2:], start=1):
+            out[field] = rows[:, j]
+        keep = np.ones(ids.size, bool)
+        if lo_ns is not None:
+            keep &= out["start_ns"] >= lo_ns
+        if hi_ns is not None:
+            keep &= out["start_ns"] <= hi_ns
+        return out[keep]
+
+    def profiler_offset_ns(self) -> int:
+        """``time.time_ns() - time.perf_counter_ns()``: subtract it from a
+        ``torch.profiler`` event's ``start_ns()`` (wall-clock nanoseconds)
+        to put the event on the spans' clock.  The closest of a few paired
+        readings; each is appended to ``span_offsets_ns`` with the host
+        clock it was read at, after the one read when the first span was
+        recorded, so that a reader can follow the wall clock's drift."""
+        best = None
+        for _ in range(5):
+            p0 = time.perf_counter_ns()
+            wall = time.time_ns()
+            p1 = time.perf_counter_ns()
+            if best is None or p1 - p0 < best[0]:
+                best = (p1 - p0, (p0 + p1) // 2, wall - (p0 + p1) // 2)
+        self.span_offsets_ns.append(best[1:])
+        return best[2]
 
     def _lane_summary(self, lane: str) -> Dict:
         completed = self.lane_completed[lane]
@@ -243,7 +395,9 @@ class ServeMetrics:
                 k: v * 1e6 for k, v in _pcts(self.engine_s).items()
             },
             "request_latency_us": {
-                k: v * 1e6 for k, v in _pcts(self.request_latency_s).items()
+                k: v * 1e6 for k, v in _pcts(list(itertools.chain(
+                    *self.lane_latency_s.values()
+                ))).items()
             },
             "swap_us": {k: v * 1e6 for k, v in _pcts(self.swap_s).items()},
             "recals": self.recals,

@@ -42,6 +42,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from .batching import Batcher, PRIORITIES, PRIORITY_RANK
+from .metrics import Span, stamp, torch_profiler
 
 logger = logging.getLogger(__name__)
 
@@ -219,24 +220,35 @@ class Scheduler:
         """Form + execute + demux ONE engine batch for ``slot``; returns
         the number of rows served.  Asserts zero recompilation after the
         batch — the no-resynthesis invariant holds per scheduler-formed
-        batch, not just per sync flush."""
+        batch, not just per sync flush.
+
+        While a profile runs, a served batch logs its span and the five
+        that tile it (``_record_spans``)."""
         server = self.server
+        marks = [stamp()] if torch_profiler._is_profiler_enabled else None
         with self.lock:
             if not server.batcher.pending_rows(slot):
                 return 0
             entry = server.registry.get(slot)
             X, spans = server.batcher.next_batch(
-                slot, out=server.executor.staging
+                slot, out=server.executor.staging, marks=marks
             )
             self._record_shed()
             if not spans:  # everything queued had already expired
                 return 0
+            if marks is not None:
+                marks.append(stamp())
+                server.executor.sync_marks = marks
             t0 = time.perf_counter()
             try:
                 sums = server.executor.class_sums(entry.program, X)
                 dt = time.perf_counter() - t0
+                if marks is not None:
+                    server.executor.sync_marks = None
+                    marks.append(stamp())
                 preds = np.argmax(sums, axis=1).astype(np.int32)
             except Exception as cause:
+                server.executor.sync_marks = None
                 # a raising batch body must not strand its requests until
                 # their own timeouts: fail every handle in the batch with
                 # a structured error (slot + cause) and keep the loop —
@@ -258,7 +270,6 @@ class Scheduler:
                 if handle.failed:
                     continue  # a prior batch already failed this request
                 if handle.done and handle.latency_s is not None:
-                    server.metrics.record_request_latency(handle.latency_s)
                     server.metrics.record_lane_completion(
                         handle.priority,
                         handle.queue_delay_s or 0.0,
@@ -266,7 +277,41 @@ class Scheduler:
                         missed=handle.missed_deadline,
                     )
             server._check_no_recompile()
+            if marks is not None:
+                marks.append(stamp())
+                self._record_spans(marks, X, spans)
             return X.shape[0]
+
+    def _record_spans(self, marks, X: np.ndarray, spans) -> None:
+        """Log a served batch: ``marks`` holds its stamps at entry, when
+        the batcher's lock was taken, at the engine call, when the
+        device wait began, after it and at the end.  The batch's children
+        tile it; each request it completed gets its own span (enqueue to
+        completion, on the handle's stamps), child of the batch."""
+        metrics = self.server.metrics
+        # an engine that never called ``_to_host`` left no wait to time
+        waits = marks[3] if len(marks) > 5 else marks[-2]
+        bounds = (marks[0], marks[1], marks[2], waits, marks[-2], marks[-1])
+        seq = metrics.batches
+        batch = metrics.record_span(
+            Span.BATCH, bounds[0], bounds[-1], tag=seq, arg=X.shape[0]
+        )
+        filled = self.server.executor.staging.nbytes + X.nbytes
+        for name, a, b in zip(
+            (Span.LOCK_WAIT, Span.FILL, Span.LAUNCH, Span.SYNC, Span.DEMUX),
+            bounds, bounds[1:],
+        ):
+            metrics.record_span(
+                name, a, b, parent=batch, tag=seq,
+                arg=filled if name == Span.FILL else 0,
+            )
+        for handle, _, _, _ in spans:
+            if handle.completed_at is not None and not handle.failed:
+                metrics.record_span(
+                    Span.REQUEST, (int(handle.enqueued_at * 1e9), 0),
+                    (int(handle.completed_at * 1e9), 0), parent=batch,
+                    tag=handle.rid, arg=handle.n_rows,
+                )
 
     def drain_slot(self, slot: str) -> None:
         """Serve every queued row for ``slot`` (the sync flush body and
@@ -328,14 +373,29 @@ class Scheduler:
                 if served:
                     # keep draining back-to-back under load, but yield
                     # so cross-thread wakes/cancellations get a turn
+                    yielded = (
+                        stamp() if torch_profiler._is_profiler_enabled
+                        else None
+                    )
                     await asyncio.sleep(0)
+                    if yielded is not None:
+                        self.server.metrics.record_span(
+                            Span.LOOP_YIELD, yielded, stamp()
+                        )
                     continue
+                waited = (
+                    stamp() if torch_profiler._is_profiler_enabled else None
+                )
                 try:
                     await asyncio.wait_for(
                         self._wake.wait(), self._next_due_in(now)
                     )
                 except (asyncio.TimeoutError, TimeoutError):
                     pass
+                if waited is not None:
+                    self.server.metrics.record_span(
+                        Span.LOOP_WAIT, waited, stamp()
+                    )
                 self._wake.clear()
             except Exception:
                 # a dead loop thread strands every pending request, so

@@ -58,7 +58,7 @@ import numpy as np
 from ..accel.capacity import CapacityPlan
 from ..accel.engine import EngineBase, make_engine, select_engine
 from .batching import RequestHandle
-from .metrics import ServeMetrics
+from .metrics import ServeMetrics, Span, stamp, torch_profiler
 from .registry import DEFAULT_HISTORY_DEPTH, Installable, ModelRegistry, SlotEntry
 from .scheduler import Scheduler
 
@@ -211,11 +211,15 @@ class TMServer:
 
         ``enqueue`` is internally serialized against the scheduler
         loop's batch formation (the batcher lock), so callers may submit
-        from any thread while the loop runs."""
+        from any thread while the loop runs.  While a profile runs, the
+        call logs its ``front_door`` span."""
+        entered = stamp() if torch_profiler._is_profiler_enabled else None
         handle, x = self._make_handle(slot, x, priority, timeout_ms)
         self.batcher.enqueue(handle, x)
         if self.scheduler.running:
             self.scheduler.wake()
+        if entered is not None:
+            self._record_front_door(entered, handle)
         return handle
 
     async def async_submit(
@@ -233,12 +237,22 @@ class TMServer:
         lanes reject first.  The depth check and the enqueue are one
         atomic section (batcher lock), so concurrent submitters cannot
         collectively exceed the lane budget.  Await the returned
-        handle's ``async_result()`` for completion."""
+        handle's ``async_result()`` for completion.  While a profile
+        runs, the call logs its ``front_door`` span."""
+        entered = stamp() if torch_profiler._is_profiler_enabled else None
         handle, xv = self._make_handle(slot, x, priority, timeout_ms)
         self.scheduler.admit_and_enqueue(handle, xv)
         if self.scheduler.running:
             self.scheduler.wake()
+        if entered is not None:
+            self._record_front_door(entered, handle)
         return handle
+
+    def _record_front_door(self, entered, handle: RequestHandle) -> None:
+        self.metrics.record_span(
+            Span.FRONT_DOOR, entered, stamp(), tag=handle.rid,
+            arg=handle.n_rows,
+        )
 
     def flush(self) -> None:
         """Drain every slot's queue through the engine (the sync driver;
