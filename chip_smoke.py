@@ -15,11 +15,15 @@ features, ~17k includes, 8192 datapoints per flush) it
      ``torch.equal`` (integer sums: tolerance 0), one weight plane and
      three, plus a ragged batch, a program with a zero-include class, and
      the clause table and clause-space masks as the engine pads them;
+  2b. holds the packing kernel (``pack_phase``) to its eager twin at the
+     served shapes (8192 and 32768 rows x 784 features, 8192 x 1122) and
+     times each beside its bytes bound and the twin's time;
   3. serves the main path through ``Accelerator``: compile -> bytes ->
      load -> submit (1, 37, 8192 rows) -> flush, a hot-swap under queued
      traffic, a rollback and the scheduler loop, every prediction held
-     to the dense ``batch_class_sums`` oracle; the kernels' launch counts
-     are zeroed just before and read just after;
+     to the dense ``batch_class_sums`` oracle; the launch counts of
+     ``tm_popcount`` and ``pack_literals`` are zeroed just before and
+     read just after;
   3b. dense vs compressed (the paper's Fig 6 / Fig 9 comparison): one
      model evaluated four ways on all 8192 rows -- ``tm_dense_class_sums``
      (clause_eval), ``tm_matmul_class_sums`` (clause_matmul),
@@ -204,7 +208,7 @@ features, ~17k includes, 8192 datapoints per flush) it
   4. times each kernel, its plain twin, the staging copy and one flush
      with CUDA events (median of 30) and works out each kernel's bound;
 
-and prints a ``{"kernels": [...]}`` line (all seven kernels), the card's name and power limit
+and prints a ``{"kernels": [...]}`` line (all eight kernels), the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase exits nonzero before the result lines; so does a machine
 without CUDA, or a directory that lacks the repo's ``src/repro_torch``.
@@ -1797,6 +1801,60 @@ LM_TOL = 1e-3  # card vs CPU in fp32, TF32 off (PyTorch's default)
 ATTN_TOL, ATTN_GRAD_TOL = 1e-4, 5e-4  # streaming vs plain on the card, fp32
 
 
+PACK_SHAPES = ((8192, 784), (32768, 784), (8192, 1122))
+
+
+def pack_phase(dev, shapes=PACK_SHAPES):
+    """The served packing kernel (``kernels.pack_literals``) against its
+    eager twin at the served shapes (mnist-sensors' and mnist-bulk's
+    batches at 784 features, and HAR's 1,122, whose rows take byte
+    loads): ``torch.equal`` on bytes half zero and half in [1, 256), then
+    each timed (CUDA events, median of REPS, wrapper included; the twin
+    median of PLAIN_REPS) beside its bytes bound (F bytes read and F / 4
+    written a row) and profiled for its device time per launch.  Returns
+    the ``{"kernels"}`` timings at the first shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.pack_literals import kernel as plk
+
+    timings = {}
+    for b, f in shapes:
+        rng = np.random.default_rng(b + f)
+        nonzero = rng.integers(1, 256, (b, f), dtype=np.uint8)
+        x = torch.from_numpy(
+            np.where(rng.random((b, f)) < 0.5, 0, nonzero).astype(np.uint8)
+        ).to(dev)
+        before = plk.launches
+        got = plk.pack_literals(x)
+        want = plk.pack_literals_plain(x)
+        torch.cuda.synchronize()
+        if plk.launches != before + 1:
+            fail(f"pack_literals {b}x{f}: {plk.launches - before} launches, not 1")
+        if not torch.equal(got, want):
+            fail(f"pack_literals {b}x{f}: {int((got != want).sum())} words "
+                 "differ from the plain twin")
+        k_ms = median_ms(lambda: plk.pack_literals(x))
+        p_ms = median_ms(lambda: plk.pack_literals_plain(x), reps=PLAIN_REPS)
+        n_bytes = b * f + 4 * 2 * f * (b // 32)
+        bound_ms, bound_by = bound(n_bytes, 0)
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            for _ in range(REPS):
+                plk.pack_literals(x)
+            torch.cuda.synchronize()
+        kernel_us = [us / n for name, (us, n) in _device_events(prof).items()
+                     if "pack_literals_kernel" in name]
+        device_us = kernel_us[0] if len(kernel_us) == 1 else float("nan")
+        print(f"time pack_literals {b}x{f}: kernel {k_ms:.6f} ms, device "
+              f"{device_us:.3f} us/launch ({bound_ms * 1e3 / device_us:.1%} of its "
+              f"roofline), plain {p_ms:.6f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}; {n_bytes} B)")
+        timings[(b, f)] = (k_ms, p_ms, bound_ms, bound_by, None)
+    return timings[shapes[0]]
+
+
 def card_identity() -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
@@ -3300,6 +3358,7 @@ def main() -> int:
         plan_to_operands,
         tm_compressed_class_sums,
     )
+    from repro_torch.kernels.pack_literals import kernel as plk
     from repro_torch.kernels.tm_popcount import kernel as tmk
     from repro_torch.kernels.tm_popcount.ops import plan_to_popcount_operands
 
@@ -3322,7 +3381,8 @@ def main() -> int:
                           ("tm_popcount", ("clause_words", "reduce")),
                           ("tm_train", ("prologue", "update")),
                           ("interp_stream", ("decode", "evaluate")),
-                          ("clause_table", ("vec1", "vec4"))):
+                          ("clause_table", ("vec1", "vec4")),
+                          ("pack_literals", ("vec16", "bytes"))):
         for which, kname in enumerate(kernels):
             attr = _build.attributes(name, which)
             print(f"attributes {name} {kname}: numRegs {attr['regs']}, "
@@ -3425,6 +3485,9 @@ def main() -> int:
             fail("the zero-include class has nonzero sums")
         print(f"parity {name}: equal, sums shape {tuple(got.shape)}")
 
+    # -- 2b. the served packing kernel at the served shapes ---------------
+    pack_row = pack_phase(dev)
+
     # -- 3. the main path through Accelerator ------------------------------
     def oracle(acts, w, x):
         state = state_from_actions(cfg, torch.from_numpy(acts).to(dev))
@@ -3446,7 +3509,7 @@ def main() -> int:
         fail(f"default Accelerator runs {acc!r}")
     print(f"accelerator: {acc!r}")
     blob = acc.compile(model_a).to_bytes()
-    tmk.launches = 0
+    tmk.launches = plk.launches = 0
     acc.load("mnist", blob)
     handles = [acc.submit("mnist", r) for r in (X[:1], X[1:38], X)]
     acc.flush()
@@ -3473,15 +3536,15 @@ def main() -> int:
     if not np.array_equal(got, pred_a):
         fail("predictions after the rollback differ from model a's oracle")
     torch.cuda.synchronize()
-    main_launches = tmk.launches
+    main_launches, pack_launches = tmk.launches, plk.launches
     if acc.compile_cache_size() != 1:
         fail(f"compile_cache_size() == {acc.compile_cache_size()}, not 1")
-    if main_launches == 0:
-        fail("the main path never launched the tm_popcount kernel")
+    if main_launches == 0 or pack_launches == 0:
+        fail("the main path never launched the tm_popcount or pack_literals kernel")
     print(
         f"serve: {acc.metrics_snapshot()['requests_completed']} requests, "
         f"hot-swap + rollback exact, compile_cache_size 1, tm_popcount "
-        f"launches {main_launches}"
+        f"launches {main_launches}, pack_literals launches {pack_launches}"
     )
 
     # -- 3b. dense vs compressed: one model, four evaluations -------------
@@ -3865,7 +3928,9 @@ def main() -> int:
                         ("tm_interp", "tm_interp/kernel.py:37")):
         rows.append((kname, f"src/repro/kernels/{body}", path_launches[kname],
                      new_err[kname], new_timings[kname]))
-    rows += [train_row, stream_row, sharded_row]
+    rows += [train_row, stream_row, sharded_row,
+             ("pack_literals", "none: src/repro/core/tm.py:159 is jnp code that XLA "
+              "fuses", pack_launches, 0, pack_row)]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

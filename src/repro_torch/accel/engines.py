@@ -15,8 +15,9 @@ against the ``core.tm.batch_class_sums`` oracle:
     axes), each tile one launch of the hand-written ``clause_table``
     kernel; on a (1, 1) mesh the single-device realization of the Fig-7
     multi-core split.  Takes the mesh as an option (``needs_mesh``).
-  * ``popcount`` — the popcount bitplane path (``kernels.tm_popcount``):
-    clause outputs stay packed 32-bit words until a clause boundary; class
+  * ``popcount`` — the popcount bitplane path (``kernels.tm_popcount``)
+    over the staging block packed by ``kernels.pack_literals``: clause
+    outputs stay packed 32-bit words until a clause boundary; class
     sums come from popcounts against per-class polarity-bank bitplanes.
 
 On CUDA the kernels are the hand-written Hopper ones; on the CPU (only
@@ -39,10 +40,11 @@ import torch
 from ..core.bits import from_u32
 from ..core.compress import CompressedModel, decode_to_plan
 from ..core.interp import interpret_stream, pack_features, pad_plan, plan_class_sums
-from ..core.tm import literals, pack_literals
+from ..core.tm import literals
 from ..device import resolve_device
 from ..dist.sharding import make_mesh
 from ..dist.tm_sharded import TMShardedConfig, build_tm_sharded, fill_clause_tables
+from ..kernels.pack_literals.kernel import pack_literals
 from ..kernels.tm_popcount.kernel import clause_space_masks, tm_popcount
 from ..kernels.tm_popcount.ops import clause_ends, plan_to_popcount_operands
 from .capacity import CapacityExceeded

@@ -1,7 +1,8 @@
 """The port neither leaks into the reference nor falls back on its own:
 it imports no JAX and nothing of ``repro`` (every module, the kernel
 packages ``tm_popcount``, ``tm_interp``, ``clause_eval``,
-``clause_matmul``, ``tm_train``, ``interp_stream`` and ``clause_table``,
+``clause_matmul``, ``tm_train``, ``interp_stream``, ``clause_table`` and
+``pack_literals``,
 ``prune``, ``data``, ``dist``, ``core.runtime`` and the LM modules
 ``configs``, ``optim``, ``models``, ``launch.serve``, ``launch.train``,
 ``launch.mesh``, ``runtime_ft.elastic`` and the dry run's
@@ -34,8 +35,8 @@ from repro_torch.recal import RecalWorker, make_train_engine
 from repro_torch.serve_tm import TMServer
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-KERNELS = ["clause_eval", "clause_matmul", "clause_table", "interp_stream", "tm_interp",
-           "tm_popcount", "tm_train"]
+KERNELS = ["clause_eval", "clause_matmul", "clause_table", "interp_stream",
+           "pack_literals", "tm_interp", "tm_popcount", "tm_train"]
 MODULES = ["repro_torch.core.runtime", "repro_torch.core.interp",
            "repro_torch.core.booleanize", "repro_torch.data.pipeline",
            "repro_torch.prune.rank", "repro_torch.prune.passes",
@@ -249,6 +250,7 @@ def _dense_and_interp_calls(device):
     from repro_torch.kernels.clause_matmul import kernel as cm
     from repro_torch.core.interp import pack_features
     from repro_torch.kernels.interp_stream import kernel as ist
+    from repro_torch.kernels.pack_literals import kernel as plk
     from repro_torch.kernels.tm_interp import kernel as ti
     from repro_torch.kernels.tm_interp.ops import plan_to_operands
 
@@ -271,7 +273,9 @@ def _dense_and_interp_calls(device):
     model = _model()
     imem = torch.from_numpy(model.instructions.astype(np.int32)).to(device)
     feats = pack_features(x, 16, 2)
+    block = torch.from_numpy(rng.integers(0, 2, (64, 10), dtype=np.uint8)).to(device)
     return [  # (..., CUDA launches per call)
+        (plk, lambda: plk.pack_literals(block), "pack_literals_plain", 1),
         (ce, lambda: ce.clause_eval(acts, packed), "clause_eval_plain", 1),
         (tt, lambda: tt.fused_train_batch(cfg, state, prng.key(3), x, y),
          "tm_train_plain", 2),

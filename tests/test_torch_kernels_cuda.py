@@ -24,6 +24,7 @@ from repro_torch.kernels.tm_interp.ops import (
     compressed_operands,
     plan_to_operands,
 )
+from repro_torch.kernels.pack_literals import kernel as pl_kernel
 from repro_torch.kernels.tm_popcount import kernel as popcount_kernel
 from repro_torch.kernels.tm_popcount import ops as popcount_ops
 from repro_torch.kernels.tm_train import kernel as tt_kernel
@@ -591,6 +592,82 @@ def test_engines_on_the_card_serve_the_cpu_sums(dev, engine):
             sums.append(acc.class_sums("s", x))
         np.testing.assert_array_equal(*sums)
     assert accs[0].compile_cache_size() == 1
+
+
+def _pack_block(rng, b, f, kind):
+    """uint8 [b, f]: "random" is half zeros and half bytes in [1, 256)."""
+    if kind == "zeros":
+        return np.zeros((b, f), np.uint8)
+    if kind == "ones":
+        return np.ones((b, f), np.uint8)
+    nonzero = rng.integers(1, 256, (b, f), dtype=np.uint8)
+    return np.where(rng.random((b, f)) < 0.5, 0, nonzero).astype(np.uint8)
+
+
+# F off the 16-byte grain (1, 15, 17, 1,122: byte loads) and on it (16,
+# 784: 16-byte loads, 784 a chunk of 16 at the end); W = 1 and 3 leave a
+# block's words mostly empty, 256 and 1,024 are the served batches
+@pytest.mark.parametrize("kind", ["random", "zeros", "ones"])
+@pytest.mark.parametrize("w", [1, 3, 256, 1024])
+@pytest.mark.parametrize("f", [1, 15, 16, 17, 784, 1122])
+def test_pack_literals_kernel_matches_plain_twin(dev, f, w, kind):
+    x = torch.from_numpy(_pack_block(np.random.default_rng(f * 31 + w), 32 * w, f,
+                                     kind)).to(dev)
+    before = pl_kernel.launches
+    got = pl_kernel.pack_literals(x)
+    assert pl_kernel.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (2 * f, w)
+    assert torch.equal(got, pl_kernel.pack_literals_plain(x))
+
+
+@pytest.mark.parametrize("f,w", [(784, 256), (16, 3), (1122, 5)])
+def test_pack_literals_kernel_on_blocks_off_the_16_byte_grain(dev, f, w):
+    """A block that starts one byte past an aligned address: byte loads at
+    any F."""
+    x = torch.from_numpy(_pack_block(np.random.default_rng(f), 32 * w, f, "random"))
+    buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)
+    shifted = buf[1:].view(32 * w, f)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    want = pl_kernel.pack_literals_plain(x.to(dev))
+    assert torch.equal(pl_kernel.pack_literals(shifted), want)
+
+
+def test_pack_literals_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros((64, 32), dtype=torch.uint8, device=dev)
+    before = pl_kernel.launches
+    with pytest.raises(ValueError, match="multiple of 32"):
+        pl_kernel.pack_literals(x[:40])
+    with pytest.raises(TypeError, match="uint8"):
+        pl_kernel.pack_literals(x.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        pl_kernel.pack_literals(x[:, ::2])
+    assert pl_kernel.launches == before
+
+
+@pytest.mark.parametrize("engine", ["popcount", "sharded"])
+def test_packing_engines_on_the_card_launch_pack_literals(dev, engine):
+    """The engines that pack the staging block serve the CPU's sums, one
+    ``pack_literals`` launch per batch."""
+    from repro_torch.accel import Accelerator
+
+    rng = np.random.default_rng(6)
+    cfg = TMConfig(5, 10, 30)
+    a = compress.encode(cfg, rng.random((5, 10, 60)) < 0.08)
+    b = compress.encode(cfg, rng.random((5, 10, 60)) < 0.1, rng.integers(1, 6, (5, 10)))
+    x = rng.integers(0, 2, (70, 30), dtype=np.uint8)
+    card, cpu = (Accelerator.for_models([a, b], batch_words=3, engine=e, device=d)
+                 for e, d in ((engine, dev), ("popcount", "cpu")))
+    for model in (a, b, a):
+        card.load("s", card.compile(model))
+        cpu.load("s", cpu.compile(model))
+        before = pl_kernel.launches
+        got = card.class_sums("s", x)
+        torch.cuda.synchronize()
+        assert pl_kernel.launches == before + 1
+        np.testing.assert_array_equal(got, cpu.class_sums("s", x))
+        assert pl_kernel.launches == before + 1
+    assert card.compile_cache_size() == 1
 
 
 def _clause_table_case(dev, M, C, lc, l2, w, seed, kind="random"):
