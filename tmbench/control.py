@@ -12,9 +12,12 @@ by a control and checked again, and the window is served once more with
 each fault planted in the engine:
 
   controls   int16, int8: the reference's sums accumulated in a narrower
-             integer (a precision step below the stated int32);
+             integer (a precision step below the stated int32), clause
+             weights cast to it;
              tie_high: the reference with the prediction's stated tie rule
-             broken (the last class of largest sum)
+             broken (the last class of largest sum);
+             weights_ignored (weighted configurations only): the
+             reference with every clause weight read as 1
   faults     answer_altered: one class sum of each engine batch off by 1;
              half_batch_left_out: the second half of each engine batch
              answered with zero sums
@@ -97,8 +100,11 @@ def readings(root, workload, seed, seconds, device, controls):
         return out
     x = torch.from_numpy(run.pool).to(run.device)
     actions = run.actions.to(run.device)
-    for name, dtype in (("int16", torch.int16), ("int8", torch.int8)):
-        sums = class_sums(actions, x, dtype=dtype).cpu().numpy()
+    variants = [("int16", torch.int16, run.weights), ("int8", torch.int8, run.weights)]
+    if run.weights is not None:
+        variants.append(("weights_ignored", torch.int32, None))
+    for name, dtype, weights in variants:
+        sums = class_sums(actions, x, dtype=dtype, weights=weights).cpu().numpy()
         answers = control_answers(got, sums, predictions(sums))
         out.append((name, check.compare(answers, lost, ref_sums, ref_preds)))
     answers = control_answers(got, ref_sums, tie_high(ref_sums))

@@ -22,6 +22,15 @@ with ``--trace 0`` where the cell reports an end-to-end metric whose
   run.events          device operations of the traced window (None
                       untraced or on the CPU)
   run.traced_s        host seconds the profiler ran
+
+A configuration is weightless (``"weighted": false``, no
+``clause_weights``) or weighted (``"weighted": true`` with
+``"clause_weights": {"dist", "min", "max"}``, 1 <= min <= max <= 65535):
+each clause then votes ``weight * pol``, the weights drawn on the device
+from the seed's own ``clause_weights`` stream (``weights.clause_weights``),
+encoded into the served program and handed to the reference as they
+were drawn.  A configuration whose two keys disagree is refused before
+anything is made.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ from .clients import WAIT_S, Clients
 from .pulse import Pulse
 from .reference.classsums import class_sums, predictions
 from .reference.data import DataSource
-from .weights import include_actions
+from .weights import clause_weights, include_actions, weight_spec
 
 HERE = Path(__file__).resolve().parent
 SLOT = "model"
@@ -115,18 +124,22 @@ class Run:
         t = time.perf_counter()
         if int(cfg["n_raw_features"]) * int(cfg["thermometer_bits"]) != int(cfg["n_features"]):
             raise ValueError("n_features is not n_raw_features x thermometer_bits")
+        weight_spec(cfg)
         source = DataSource(cfg, self.seed, dev)
         actions = include_actions(cfg, source, self.seed)
         self.pool = source.pool(int(cfg["pool_rows"]))
         self.actions = actions.cpu()
-        del source, actions
+        weights = clause_weights(cfg, self.seed, dev)
+        self.weights = None if weights is None else weights.cpu()
+        del source, actions, weights
         self.phases["data"] = time.perf_counter() - t
         t = time.perf_counter()
         tm = TMConfig(
             n_classes=int(cfg["n_classes"]), n_clauses=int(cfg["n_clauses"]),
             n_features=int(cfg["n_features"]),
         )
-        model = encode(tm, self.actions.numpy())
+        model = encode(tm, self.actions.numpy(),
+                       None if self.weights is None else self.weights.numpy())
         self.acc = Accelerator.for_models(
             [model], batch_words=int(self.traffic["batch_words"]), device=dev
         )
@@ -193,7 +206,8 @@ class Run:
     def reference(self):
         """(int32[pool, M] sums, int32[pool] predictions) of every pool row."""
         x = torch.from_numpy(self.pool).to(self.device)
-        sums = class_sums(self.actions.to(self.device), x).cpu().numpy()
+        sums = class_sums(self.actions.to(self.device), x,
+                          weights=self.weights).cpu().numpy()
         return sums, predictions(sums)
 
     def answers(self):

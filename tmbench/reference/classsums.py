@@ -1,11 +1,12 @@
-"""Class sums of a weightless Tsetlin Machine, straight from its include
-actions, in plain PyTorch.
+"""Class sums of a Tsetlin Machine, weightless or with integer clause
+weights, straight from its include actions, in plain PyTorch.
 
 Literals are interleaved: slot 2k is feature k, slot 2k+1 its negation.
 At inference a clause with at least one include fires when none of its
 included literals is 0, and a clause with no includes outputs 0.  Class
 m adds its even (positive) clauses and subtracts its odd (negative)
-ones.  The prediction is the first class of largest sum.
+ones, each firing clause by its weight (1 where the machine is
+weightless).  The prediction is the first class of largest sum.
 
 The count of included literals that are 0 is one float32 product of
 Booleans, exact for any count below 2^24; TF32 is switched off around it
@@ -26,11 +27,15 @@ def zero_literals(x: torch.Tensor) -> torch.Tensor:
 
 def class_sums(
     actions: torch.Tensor, x: torch.Tensor, block_rows: int = 16384,
-    dtype: torch.dtype = torch.int32,
+    dtype: torch.dtype = torch.int32, weights: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """actions bool[M, C, 2F], x {0,1}[R, F] (on one device) ->
-    int32[R, M] class sums, ``block_rows`` rows at a time, accumulated in
-    ``dtype`` (a narrower integer for the benchmark's control)."""
+    """actions bool[M, C, 2F], x {0,1}[R, F] (on one device) and optional
+    clause weights int[M, C] -> int32[R, M] class sums, ``block_rows``
+    rows at a time, each firing clause adding ``weight * pol`` in
+    ``dtype`` (a narrower integer for the benchmark's control, whose
+    weights then wrap as that integer's do).  In int32 the sums are exact
+    while ceil(C/2) times the largest weight is below 2^31, which is
+    checked."""
     M, C, L2 = actions.shape
     if x.shape[1] * 2 != L2:
         raise ValueError(f"{x.shape[1]} features do not match {L2} literals")
@@ -39,6 +44,12 @@ def class_sums(
     pol = torch.where(
         torch.arange(C, device=x.device) % 2 == 0, 1, -1
     ).to(dtype)
+    if weights is not None:
+        if tuple(weights.shape) != (M, C):
+            raise ValueError(f"weights of shape {tuple(weights.shape)}, not {(M, C)}")
+        if -(-C // 2) * int(weights.abs().max()) >= 2**31:
+            raise ValueError("class sums of these weights can exceed int32")
+    vote = pol if weights is None else weights.to(x.device, torch.int64).to(dtype) * pol
     out = torch.empty((x.shape[0], M), dtype=torch.int32, device=x.device)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -47,7 +58,7 @@ def class_sums(
             z = zero_literals(x[lo:lo + block_rows])
             fires = (z @ inc.T == 0) & nonempty  # [b, M*C]
             out[lo:lo + z.shape[0]] = (
-                fires.to(dtype).reshape(-1, M, C) * pol
+                fires.to(dtype).reshape(-1, M, C) * vote
             ).sum(dim=-1, dtype=dtype)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32

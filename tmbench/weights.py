@@ -1,4 +1,5 @@
-"""Include actions of a configuration's machine, made from a seed.
+"""Include actions and clause weights of a configuration's machine, made
+from a seed.
 
 Clauses alternate polarity (even positive, odd negative).  Each clause
 takes its includes among the literals that are true on one seeded
@@ -8,14 +9,71 @@ class sums vary.  The machine has exactly ``work.n_includes(config)``
 includes on every seed, spread as evenly as whole numbers allow (each
 clause holds ``n // (M C)`` or one more), so the work per row is the
 same whatever the seed.
+
+A weighted configuration (the weighted Tsetlin Machine, arXiv:1911.12607;
+the weighted merge of ETHEREAL, arXiv:2502.05640) declares
+``"weighted": true`` and ``"clause_weights": {"dist": "log_uniform",
+"min": a, "max": W}`` with 1 <= a <= W <= 65535 (the wire's uint16):
+log-uniform over [a, W + 1), floored to whole weights.  A weightless one declares ``"weighted": false`` (or nothing)
+and no ``clause_weights``.  Each clause votes ``weight * pol``.  The
+weights come from a stream of their own, ``generator(dev, seed,
+"clause_weights")``, so the data, the include actions and the requests
+of a seed are the same with and without weights, and a weightless
+configuration draws nothing more.  One seeded clause holds ``max`` on
+every seed, so the served program has ``W.bit_length()`` weight planes
+whatever the seed.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
 from .reference.data import DataSource, generator
 from .work import n_includes
+
+MAX_WEIGHT = 0xFFFF  # the program's wire carries each weight as a uint16
+WEIGHT_DISTS = ("log_uniform",)
+
+
+def weight_spec(config: dict) -> Optional[dict]:
+    """The configuration's ``clause_weights`` entry, or None where it is
+    weightless; raises ``ValueError`` where ``weighted`` and
+    ``clause_weights`` disagree or the entry is out of range."""
+    weighted = config.get("weighted", False)
+    spec = config.get("clause_weights")
+    if not isinstance(weighted, bool):
+        raise ValueError(f"weighted must be true or false, not {weighted!r}")
+    if weighted != (spec is not None):
+        raise ValueError(
+            f"weighted is {str(weighted).lower()} but clause_weights is "
+            f"{'absent' if spec is None else 'given'}: a weighted configuration "
+            "declares both, a weightless one neither")
+    if spec is None:
+        return None
+    if spec.get("dist") not in WEIGHT_DISTS:
+        raise ValueError(f"clause_weights dist must be one of {WEIGHT_DISTS}")
+    lo, hi = int(spec["min"]), int(spec["max"])
+    if not 1 <= lo <= hi <= MAX_WEIGHT:
+        raise ValueError(f"clause_weights needs 1 <= min <= max <= {MAX_WEIGHT}")
+    return spec
+
+
+def clause_weights(config: dict, seed: int, device="cpu") -> Optional[torch.Tensor]:
+    """int32[M, C] on ``device``, or None for a weightless configuration."""
+    spec = weight_spec(config)
+    if spec is None:
+        return None
+    M, C = int(config["n_classes"]), int(config["n_clauses"])
+    lo, hi = int(spec["min"]), int(spec["max"])
+    g = generator(device, seed, "clause_weights")
+    u = torch.rand((M * C,), generator=g, device=device, dtype=torch.float64)
+    w = torch.exp(math.log(lo) + u * (math.log(hi + 1) - math.log(lo)))
+    w = w.floor().clamp(lo, hi).to(torch.int32)
+    w[torch.randint(0, M * C, (1,), generator=g, device=device)] = hi
+    return w.reshape(M, C)
 
 
 def include_actions(config: dict, source: DataSource, seed: int) -> torch.Tensor:

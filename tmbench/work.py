@@ -4,7 +4,9 @@ Counted from the configuration and the number of rows alone, never from
 a kernel's operands, so that fusing or splitting the program's kernels
 cannot move the count.  Each row's features are read once at one bit
 each, and its class sums written once at the fewest whole bytes that
-hold their range (a weightless class of C clauses sums into [-C/2, C/2]).
+hold their range: a class of C clauses whose weights are at most W (1
+weightless) sums into [-floor(C/2) W, ceil(C/2) W], C W + 1 values.  The
+weight planes a kernel walks are never counted.
 Each include ANDs one literal word into a clause word for 32 rows: one
 32-bit operation per include per 32 rows, at the fp32 rate outside the
 tensor cores (no int32 rate is published beside it; the highest
@@ -32,10 +34,15 @@ def n_includes(config: dict) -> int:
     return round(float(config["include_density"]) * n_tas)
 
 
+def max_weight(config: dict) -> int:
+    """The largest clause weight the configuration states (1 weightless)."""
+    return int(config["clause_weights"]["max"]) if config.get("weighted") else 1
+
+
 def inference_work(config: dict, rows: float) -> dict:
     """Bytes, operations and the least seconds of ``rows`` inferences."""
     M, C, F = (int(config[k]) for k in ("n_classes", "n_clauses", "n_features"))
-    sum_bytes = math.ceil(math.ceil(math.log2(C + 1)) / 8)
+    sum_bytes = math.ceil((C * max_weight(config)).bit_length() / 8)
     n_bytes = rows * (math.ceil(F / 8) + M * sum_bytes)
     n_ops = rows * n_includes(config) / 32
     t_bytes, t_ops = n_bytes / HBM_BW, n_ops / PEAK_FP32_FLOPS
