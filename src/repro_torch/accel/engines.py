@@ -47,6 +47,7 @@ from ..dist.tm_sharded import TMShardedConfig, build_tm_sharded, fill_clause_tab
 from ..kernels.pack_literals.kernel import pack_literals
 from ..kernels.tm_popcount.kernel import clause_space_masks, tm_popcount
 from ..kernels.tm_popcount.ops import clause_ends, plan_to_popcount_operands
+from ..serve_tm.metrics import Span, stamp, torch_profiler
 from .capacity import CapacityExceeded
 from .engine import EngineBase, register_engine
 
@@ -227,6 +228,12 @@ class PopcountEngine(EngineBase):
     needs_decoded_plan = True
 
     def _program(self, model: CompressedModel, decoded=None) -> Dict[str, Any]:
+        """The program's operands on the device, and ``plane_chunks``: the
+        plan's weight planes x the 32-clause chunks the reduce walks.
+        While a profile runs the build is logged as ``program.build``
+        (tag: planes, arg: bytes of the clause-space masks)."""
+        log = self.span_log if torch_profiler._is_profiler_enabled else None
+        start = stamp() if log is not None else None
         p = self.plan
         plan = decoded if decoded is not None else decode_to_plan(model)
         # masks are built at the PLAN's plane depth (not the model's), so
@@ -247,7 +254,7 @@ class PopcountEngine(EngineBase):
             n_chunks=-(-p.instruction_capacity // 32),
         )
         dev = self.device
-        return {
+        prog = {
             "lit_idx": torch.from_numpy(lit_idx).to(dev),
             "last": torch.from_numpy(last).to(dev),
             "clause_end": torch.from_numpy(clause_end).to(dev),
@@ -257,7 +264,14 @@ class PopcountEngine(EngineBase):
             "mask_neg": from_u32(mask_neg, dev),
             "n_classes": model.n_classes,
             "n_features": model.n_features,
+            "plane_chunks": p.weight_planes * -(-int(ends.size) // 32),
         }
+        if log is not None:
+            log.record_span(
+                Span.PROGRAM_BUILD, start, stamp(), tag=p.weight_planes,
+                arg=sum(m.nbytes for m in cmasks),
+            )
+        return prog
 
     def class_sums(self, prog: Dict[str, Any], x: np.ndarray) -> np.ndarray:
         B = x.shape[0]

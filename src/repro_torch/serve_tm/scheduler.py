@@ -263,8 +263,10 @@ class Scheduler:
                 )
                 return X.shape[0]
             completed = Batcher.demux(spans, preds, sums)
+            plane_chunks = entry.program.get("plane_chunks", 0)
             server.metrics.record_batch(
-                X.shape[0], server.capacity.batch_capacity, dt, completed
+                X.shape[0], server.capacity.batch_capacity, dt, completed,
+                plane_chunks,
             )
             for handle, _, _, _ in spans:
                 if handle.failed:
@@ -279,15 +281,19 @@ class Scheduler:
             server._check_no_recompile()
             if marks is not None:
                 marks.append(stamp())
-                self._record_spans(marks, X, spans)
+                self._record_spans(marks, X, spans, plane_chunks)
             return X.shape[0]
 
-    def _record_spans(self, marks, X: np.ndarray, spans) -> None:
+    def _record_spans(
+        self, marks, X: np.ndarray, spans, plane_chunks: int
+    ) -> None:
         """Log a served batch: ``marks`` holds its stamps at entry, when
         the batcher's lock was taken, at the engine call, when the
         device wait began, after it and at the end.  The batch's children
-        tile it; each request it completed gets its own span (enqueue to
-        completion, on the handle's stamps), child of the batch."""
+        tile it; ``batch.fill`` carries the bytes written, ``batch.launch``
+        the program's weight planes x clause chunks.  Each request it
+        completed gets its own span (enqueue to completion, on the
+        handle's stamps), child of the batch."""
         metrics = self.server.metrics
         # an engine that never called ``_to_host`` left no wait to time
         waits = marks[3] if len(marks) > 5 else marks[-2]
@@ -296,14 +302,14 @@ class Scheduler:
         batch = metrics.record_span(
             Span.BATCH, bounds[0], bounds[-1], tag=seq, arg=X.shape[0]
         )
-        filled = self.server.executor.staging.nbytes + X.nbytes
+        args = {Span.FILL: self.server.executor.staging.nbytes + X.nbytes,
+                Span.LAUNCH: plane_chunks}
         for name, a, b in zip(
             (Span.LOCK_WAIT, Span.FILL, Span.LAUNCH, Span.SYNC, Span.DEMUX),
             bounds, bounds[1:],
         ):
             metrics.record_span(
-                name, a, b, parent=batch, tag=seq,
-                arg=filled if name == Span.FILL else 0,
+                name, a, b, parent=batch, tag=seq, arg=args.get(name, 0),
             )
         for handle, _, _, _ in spans:
             if handle.completed_at is not None and not handle.failed:
