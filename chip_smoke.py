@@ -3441,8 +3441,9 @@ def main() -> int:
     }
 
     def engine_table(ops):
-        """The clause table padded to I_cap and its masks in clause space
-        at the capacity's chunk count, as PopcountEngine builds them."""
+        """The clause table padded to I_cap, its masks in clause space at
+        the capacity's chunk count and their class ranges, as
+        PopcountEngine builds them."""
         ends = clause_ends(ops[1].cpu().numpy())
         table = torch.zeros(ops[0].numel(), dtype=torch.int32, device=dev)
         table[: ends.size] = torch.from_numpy(ends).to(dev)
@@ -3450,8 +3451,9 @@ def main() -> int:
             ops[2], ops[3], table[: ends.size],
             n_chunks=-(-ops[0].numel() // 32),
         )
+        ranges = tmk.class_chunk_ranges(*masks, -(-ends.size // 32))
         return {"clause_end": table, "n_clauses": int(ends.size),
-                "clause_masks": masks}
+                "clause_masks": masks, "class_ranges": ranges}
 
     # the shapes that break the clause-chunk walk: n_clauses off a multiple
     # of 32 and chunks that straddle two classes (model a), a class with no

@@ -45,7 +45,9 @@ from ..device import resolve_device
 from ..dist.sharding import make_mesh
 from ..dist.tm_sharded import TMShardedConfig, build_tm_sharded, fill_clause_tables
 from ..kernels.pack_literals.kernel import pack_literals
-from ..kernels.tm_popcount.kernel import clause_space_masks, tm_popcount
+from ..kernels.tm_popcount.kernel import (
+    class_chunk_ranges, clause_space_masks, tm_popcount,
+)
 from ..kernels.tm_popcount.ops import clause_ends, plan_to_popcount_operands
 from ..serve_tm.metrics import Span, stamp, torch_profiler
 from .capacity import CapacityExceeded
@@ -228,9 +230,10 @@ class PopcountEngine(EngineBase):
     needs_decoded_plan = True
 
     def _program(self, model: CompressedModel, decoded=None) -> Dict[str, Any]:
-        """The program's operands on the device, and ``plane_chunks``: the
-        plan's weight planes x the 32-clause chunks the reduce walks.
-        While a profile runs the build is logged as ``program.build``
+        """The program's operands on the device, ``plane_chunks``: the
+        plan's weight planes x its 32-clause chunks, and ``class_chunks``:
+        the (class, chunk) pairs the reduce walks, summed over the class
+        ranges.  While a profile runs the build is logged as ``program.build``
         (tag: planes, arg: bytes of the clause-space masks)."""
         log = self.span_log if torch_profiler._is_profiler_enabled else None
         start = stamp() if log is not None else None
@@ -253,6 +256,8 @@ class PopcountEngine(EngineBase):
             from_u32(mask_pos), from_u32(mask_neg), torch.from_numpy(ends),
             n_chunks=-(-p.instruction_capacity // 32),
         )
+        n_chunks = -(-int(ends.size) // 32)
+        ranges = class_chunk_ranges(*cmasks, n_chunks)
         dev = self.device
         prog = {
             "lit_idx": torch.from_numpy(lit_idx).to(dev),
@@ -260,11 +265,13 @@ class PopcountEngine(EngineBase):
             "clause_end": torch.from_numpy(clause_end).to(dev),
             "n_clauses": int(ends.size),
             "clause_masks": tuple(m.to(dev) for m in cmasks),
+            "class_ranges": ranges.to(dev),
             "mask_pos": from_u32(mask_pos, dev),
             "mask_neg": from_u32(mask_neg, dev),
             "n_classes": model.n_classes,
             "n_features": model.n_features,
-            "plane_chunks": p.weight_planes * -(-int(ends.size) // 32),
+            "plane_chunks": p.weight_planes * n_chunks,
+            "class_chunks": int((ranges[:, 1] - ranges[:, 0]).sum()),
         }
         if log is not None:
             log.record_span(
@@ -283,11 +290,13 @@ class PopcountEngine(EngineBase):
                 prog["mask_neg"], packed,
             )
             self._record_signature(
-                *operands, prog["clause_end"], *prog["clause_masks"]
+                *operands, prog["clause_end"], *prog["clause_masks"],
+                prog["class_ranges"],
             )
             sums = tm_popcount(
                 *operands, clause_end=prog["clause_end"],
                 n_clauses=prog["n_clauses"], clause_masks=prog["clause_masks"],
+                class_ranges=prog["class_ranges"],
             )
             # the device-to-host copy waits for the kernel, so the staging
             # block is free for the next batch when this returns

@@ -3,6 +3,7 @@ kernel's wrapper and plain twin (kernel), and a sequential oracle (ref)."""
 
 from .kernel import (
     bit_transpose32,
+    class_chunk_ranges,
     clause_space_masks,
     popcount_reduce,
     tm_popcount,
@@ -19,6 +20,7 @@ from .ref import tm_popcount_ref
 
 __all__ = [
     "bit_transpose32",
+    "class_chunk_ranges",
     "clause_ends",
     "clause_space_masks",
     "pack_class_masks",

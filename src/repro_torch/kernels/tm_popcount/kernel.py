@@ -17,7 +17,8 @@ reduction over 32-clause chunks) or raises; there is no fallback between
 the two.  The kernel reads the masks in clause space
 (``clause_space_masks``): a clause reaches the sums only through the mask
 bits at its last instruction, so gathering those bits gives the same
-sums.  ``launches`` counts the CUDA launches and nothing else.  All
+sums.  Its reduce walks, for each class, only the clause chunks where the
+class's masks have a bit (``class_chunk_ranges``).  ``launches`` counts the CUDA launches and nothing else.  All
 packed words are int32 tensors holding uint32 bit patterns
 (``core.bits``).
 """
@@ -125,6 +126,29 @@ def clause_space_masks(
     return gather(mask_pos), gather(mask_neg)
 
 
+def class_chunk_ranges(
+    cpos: torch.Tensor,  # int32[(P,) m_cap, chunks], clause space
+    cneg: torch.Tensor,  # same shape as cpos
+    n_chunks: Optional[int] = None,
+) -> torch.Tensor:
+    """Each class's half-open range of clause chunks, int32[m_cap, 2]:
+    ``[lo, hi)`` spans every chunk among the first ``n_chunks`` (default
+    all) where some plane of the class's ``cpos`` or ``cneg`` is non-zero;
+    ``lo == hi == 0`` for a class with none.  The reduce walks only these
+    chunks, so masks that are not class-major are reduced exactly too,
+    over a wider range.  Runs on the device of the masks, without a host
+    sync."""
+    n_chunks = cpos.shape[-1] if n_chunks is None else n_chunks
+    live = (cpos[..., :n_chunks] | cneg[..., :n_chunks]) != 0
+    if live.dim() == 3:
+        live = live.any(dim=0)
+    live = F.pad(live, (0, 1))  # a dead column: no reduction is empty
+    idx = torch.arange(n_chunks + 1, device=live.device)
+    hi = torch.where(live, idx + 1, 0).amax(dim=1)
+    lo = torch.where(live, idx, n_chunks).amin(dim=1)
+    return torch.stack([torch.minimum(lo, hi), hi], dim=1).to(torch.int32)
+
+
 def _pad_operands(lit_idx, last_flag, mask_pos, mask_neg):
     """Pad the instruction axis to a multiple of 32 (padding ANDs row 0
     and never emits) and the masks to the matching chunk count."""
@@ -207,6 +231,7 @@ def tm_popcount(
     clause_end: Optional[torch.Tensor] = None,
     n_clauses: Optional[int] = None,
     clause_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    class_ranges: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Popcount-bitplane inference -> int32[m_cap, W*32] class sums.
 
@@ -217,8 +242,11 @@ def tm_popcount(
     ``last_flag`` when not given.  ``clause_masks`` are ``mask_pos`` and
     ``mask_neg`` in clause space for that table (``clause_space_masks``,
     any width of at least ``ceil(n_clauses / 32)`` words), built once per
-    program; the kernel gathers them on the device when not given.  The
-    plain twin reads neither."""
+    program; the kernel gathers them on the device when not given.
+    ``class_ranges`` are those masks' ``class_chunk_ranges`` over the
+    first ``ceil(n_clauses / 32)`` chunks, also built once per program and
+    derived on the device when not given.  The plain twin reads none of
+    these."""
     _check_operands(lit_idx, last_flag, mask_pos, mask_neg, packed_lits)
     dev = packed_lits.device
     if dev.type == "cpu":
@@ -231,7 +259,7 @@ def tm_popcount(
         )
     return _tm_popcount_cuda(
         lit_idx, last_flag, mask_pos, mask_neg, packed_lits,
-        clause_end, n_clauses, clause_masks,
+        clause_end, n_clauses, clause_masks, class_ranges,
     )
 
 
@@ -240,7 +268,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("tm_popcount")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tm_popcount_launch.argtypes = [
-        p, i, p, i, p, i, i, p, p, i, i, i, p, i, p, p,
+        p, i, p, i, p, i, i, p, p, p, i, i, i, p, i, p, p,
     ]
     lib.tm_popcount_launch.restype = i
     return lib
@@ -248,7 +276,7 @@ def _lib() -> ctypes.CDLL:
 
 def _tm_popcount_cuda(
     lit_idx, last_flag, mask_pos, mask_neg, packed_lits, clause_end,
-    n_clauses, clause_masks,
+    n_clauses, clause_masks, class_ranges,
 ):
     dev = packed_lits.device
     if clause_end is None:
@@ -274,10 +302,21 @@ def _tm_popcount_cuda(
             f"{tuple(mask_pos.shape[:-1])} + (>= {n_chunks},), got "
             f"{tuple(cpos.shape)} and {tuple(cneg.shape)}"
         )
-    tensors = (lit_idx, packed_lits, clause_end, cpos, cneg)
+    planes, m_cap = (1, cpos.shape[0]) if cpos.dim() == 2 else cpos.shape[:2]
+    if class_ranges is None:
+        class_ranges = class_chunk_ranges(cpos, cneg, n_chunks)
+    if not (
+        class_ranges.shape == (m_cap, 2) and class_ranges.dtype == torch.int32
+        and class_ranges.device == dev
+    ):
+        raise ValueError(
+            f"class_ranges must be int32 [{m_cap}, 2] on {dev}, got "
+            f"{class_ranges.dtype} {tuple(class_ranges.shape)} on "
+            f"{class_ranges.device}"
+        )
+    tensors = (lit_idx, packed_lits, clause_end, cpos, cneg, class_ranges)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("tm_popcount operands must be contiguous")
-    planes, m_cap = (1, cpos.shape[0]) if cpos.dim() == 2 else cpos.shape[:2]
     l2, w = packed_lits.shape
     # one allocation, as rows of the sums: the sums [m_cap][32 w], then
     # the compact clause words [w][k_pad] (the tail rows written 0)
@@ -288,7 +327,8 @@ def _tm_popcount_cuda(
     err = _lib().tm_popcount_launch(
         lit_idx.data_ptr(), lit_idx.shape[0], clause_end.data_ptr(),
         n_clauses, packed_lits.data_ptr(), l2, w, cpos.data_ptr(),
-        cneg.data_ptr(), planes, m_cap, cpos.shape[-1],
+        cneg.data_ptr(), class_ranges.data_ptr(), planes, m_cap,
+        cpos.shape[-1],
         out.data_ptr() + 4 * out.numel(), k_pad, out.data_ptr(),
         _build.stream(dev),
     )

@@ -145,6 +145,9 @@ class ServeMetrics:
         # batch words x the program's weight planes x its 32-clause chunks,
         # summed over batches: the units of the popcount reduce's work
         self.plane_chunk_words = 0
+        # batch words x the (class, chunk) pairs the reduce walks, summed:
+        # its chunk transposes
+        self.class_chunk_words = 0
         # a list, not a bounded window: the benchmark reads it by index
         self.engine_s: List[float] = []
         self.swap_s: List[float] = []
@@ -174,15 +177,17 @@ class ServeMetrics:
 
     def record_batch(
         self, rows: int, capacity: int, elapsed_s: float, completed: int,
-        plane_chunks: int,
+        plane_chunks: int, class_chunks: int,
     ) -> None:
         """One engine batch of ``capacity`` rows, ``rows`` of them served;
-        ``plane_chunks`` is its program's weight planes x clause chunks
-        (0 for an engine that does not record them)."""
+        ``plane_chunks`` is its program's weight planes x clause chunks and
+        ``class_chunks`` the (class, chunk) pairs its reduce walks (0 for
+        an engine that does not record them)."""
         self.batches += 1
         self.rows += rows
         self.padded_rows += capacity
         self.plane_chunk_words += capacity // WORD * plane_chunks
+        self.class_chunk_words += capacity // WORD * class_chunks
         self.engine_s.append(elapsed_s)
         self.requests_completed += completed
 

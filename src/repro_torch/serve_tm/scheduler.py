@@ -266,7 +266,7 @@ class Scheduler:
             plane_chunks = entry.program.get("plane_chunks", 0)
             server.metrics.record_batch(
                 X.shape[0], server.capacity.batch_capacity, dt, completed,
-                plane_chunks,
+                plane_chunks, entry.program.get("class_chunks", 0),
             )
             for handle, _, _, _ in spans:
                 if handle.failed:

@@ -116,17 +116,44 @@ def test_clause_matmul_kernel_on_one_literal(dev, nc, b):
     assert got.any() and not got[0].any()
 
 
-def _popcount_case(dev, n_clauses_per_class, m_cap, w, planes, i_slack, seed):
+def _scattered_masks(rng, last, m_cap, n_cls, planes):
+    """Instruction-space masks that are not class-major: every clause end
+    goes to a random class of the first ``n_cls`` with a random polarity
+    and, at ``planes``, a random weight; one clause is selected for a
+    second class besides."""
+    ends = np.flatnonzero(last == 1)
+    lead = 1 if planes is None else planes
+    pos = np.zeros((lead, m_cap, -(-last.size // 32)), np.uint32)
+    neg = np.zeros_like(pos)
+    for t in ends:
+        bank = pos if rng.random() < 0.5 else neg
+        weight = int(rng.integers(1, 2 ** lead))
+        for p in range(lead):
+            if weight >> p & 1:
+                bank[p, rng.integers(n_cls), t // 32] |= np.uint32(1 << t % 32)
+    t = ends[len(ends) // 2]
+    pos[0, 0, t // 32] |= np.uint32(1 << t % 32)
+    pos[0, 1, t // 32] |= np.uint32(1 << t % 32)
+    return (pos[0], neg[0]) if planes is None else (pos, neg)
+
+
+def _popcount_case(dev, n_clauses_per_class, m_cap, w, planes, i_slack, seed,
+                   scattered=False):
     """A program of ``len(n_clauses_per_class)`` classes with the given
-    clause counts (0: a class with no clauses), its popcount operands on
-    the card, and packed literals of ``w`` batch words."""
+    clause counts (0: a class with no clauses), weights 1 to 2^planes - 1
+    above one plane, its popcount operands on the card (``scattered``:
+    its masks replaced by ``_scattered_masks``), and packed literals of
+    ``w`` batch words."""
     rng = np.random.default_rng(seed)
     n_cls, n_clauses, n_feat = len(n_clauses_per_class), max(n_clauses_per_class), 40
     acts = rng.random((n_cls, n_clauses, 2 * n_feat)) < 0.05
     acts[:, :, 1::2] &= rng.random((n_cls, n_clauses, n_feat)) < 0.3
     for m, n in enumerate(n_clauses_per_class):
         acts[m, n:] = False
-    weights = rng.integers(1, 8, (n_cls, n_clauses)) if (planes or 0) > 1 else None
+    weights = (
+        rng.integers(1, 2 ** planes, (n_cls, n_clauses)) if (planes or 0) > 1
+        else None
+    )
     plan = compress.decode_to_plan(
         compress.encode(TMConfig(n_cls, n_clauses, n_feat), acts, weights)
     )
@@ -134,6 +161,8 @@ def _popcount_case(dev, n_clauses_per_class, m_cap, w, planes, i_slack, seed):
         plan, plan.n_includes + i_slack, m_cap, l2_cap=2 * n_feat,
         weight_planes=planes,
     )
+    if scattered:
+        mp, mn = _scattered_masks(rng, last, m_cap, n_cls, planes)
     lits = from_u32(_u32(rng, (2 * n_feat, w)), dev)
     lits[::2] = -1  # positive literals all ones, so that clauses fire
     ops = [torch.from_numpy(li).to(dev), torch.from_numpy(last).to(dev),
@@ -143,38 +172,56 @@ def _popcount_case(dev, n_clauses_per_class, m_cap, w, planes, i_slack, seed):
 
 # clause counts per class: 1000 + 999 clauses (n_clauses not a multiple of
 # 32, class 0's last chunk straddles into class 1); a class with none; the
-# paper's 10 x 200.  planes None: 2-D masks; 1: 3-D masks of one plane;
-# 3: weights 1-7 in three planes.
-@pytest.mark.parametrize("counts,m_cap,w,planes", [
-    ((1000, 999), 2, 37, None), ((1000, 999), 2, 8, 3),
-    ((40, 0, 40, 25), 20, 37, 3), ((40, 0, 40, 25), 20, 37, 1),
-    ((200,) * 10, 10, 256, None),
-    ((200,) * 10, 10, 256, 3),
+# paper's 10 x 200; 18 classes in 20 rows, 16 of them empty, so that a class
+# lies past index 16.  planes None: 2-D masks; 1: 3-D masks of one plane;
+# 3: weights 1-7 in three planes; 8: weights 1-255 in eight.  scattered:
+# masks that are not class-major (random classes, one clause in two).
+@pytest.mark.parametrize("counts,m_cap,w,planes,scattered", [
+    ((1000, 999), 2, 37, None, False), ((1000, 999), 2, 8, 3, False),
+    ((40, 0, 40, 25), 20, 37, 3, False), ((40, 0, 40, 25), 20, 37, 1, False),
+    ((200,) * 10, 10, 256, None, False),
+    ((200,) * 10, 10, 256, 3, False),
+    ((300, 250, 280), 4, 37, None, True), ((300, 250, 280), 4, 37, 3, True),
+    ((40,) + (0,) * 16 + (45,), 20, 37, 3, False),
+    ((300, 250, 280), 3, 37, 8, False),
 ])
-def test_tm_popcount_kernel_matches_plain_twin(dev, counts, m_cap, w, planes):
-    ops, lits = _popcount_case(dev, counts, m_cap, w, planes, 13, len(counts))
+def test_tm_popcount_kernel_matches_plain_twin(
+    dev, counts, m_cap, w, planes, scattered
+):
+    ops, lits = _popcount_case(
+        dev, counts, m_cap, w, planes, 13, len(counts), scattered
+    )
     last = ops[1].cpu().numpy()
     ends = clause_ends(last)
     # the engine's table: padded to capacity, its masks in clause space
-    # padded to the capacity's chunk count
+    # padded to the capacity's chunk count, their class ranges
     table = torch.zeros(last.size, dtype=torch.int32, device=dev)
     table[: ends.size] = torch.from_numpy(ends).to(dev)
     masks = popcount_kernel.clause_space_masks(
         ops[2], ops[3], table[: ends.size], n_chunks=-(-last.size // 32)
     )
+    ranges = popcount_kernel.class_chunk_ranges(*masks, -(-ends.size // 32))
     want = popcount_kernel.tm_popcount_plain(*ops, lits)
     before = popcount_kernel.launches
     bare = popcount_kernel.tm_popcount(*ops, lits)
     assert popcount_kernel.launches == before + 2
     served = popcount_kernel.tm_popcount(
-        *ops, lits, clause_end=table, n_clauses=int(ends.size), clause_masks=masks
+        *ops, lits, clause_end=table, n_clauses=int(ends.size), clause_masks=masks,
+        class_ranges=ranges,
     )
     for got in (bare, served):
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert torch.equal(got, want)
     assert want.any()
+    live = (ops[2] | ops[3]) != 0
+    live = (live.any(dim=0) if live.dim() == 3 else live).any(dim=1)
     for m, n in enumerate(counts):
-        if n == 0:
-            assert not want[m].any()
+        if n == 0 and not scattered:
+            assert not live[m]
+    for m in torch.nonzero(~live).flatten().tolist():
+        assert not want[m].any() and not bare[m].any() and not served[m].any()
+    spans = (ranges[:, 1] - ranges[:, 0]).sum().item()
+    if scattered:
+        assert spans > 2 * -(-ends.size // 32)  # wide ranges
 
 
 @pytest.mark.parametrize(

@@ -283,6 +283,95 @@ def test_clause_space_masks_bit_layout_and_width():
         kernel.clause_space_masks(mask, mask, torch.arange(33), n_chunks=1)
 
 
+def _scattered_masks(rng, last, m_cap, planes):
+    """Instruction-space masks that are not class-major: every clause end
+    goes to a random class of the first ``m_cap - 1`` (the last is left
+    empty) with a random polarity and, at ``planes``, a random weight;
+    one clause is selected for a second class besides."""
+    ends = np.flatnonzero(last == 1)
+    lead = (1,) if planes is None else (planes,)
+    pos = np.zeros(lead + (m_cap, -(-last.size // 32)), np.uint32)
+    neg = np.zeros_like(pos)
+    for t in ends:
+        bank = pos if rng.random() < 0.5 else neg
+        weight = int(rng.integers(1, 2 ** lead[0]))
+        for p in range(lead[0]):
+            if weight >> p & 1:
+                bank[p, rng.integers(m_cap - 1), t // 32] |= np.uint32(1 << t % 32)
+    t = ends[len(ends) // 2]
+    pos[0, 0, t // 32] |= np.uint32(1 << t % 32)
+    pos[0, 1, t // 32] |= np.uint32(1 << t % 32)
+    return (pos[0], neg[0]) if planes is None else (pos, neg)
+
+
+@pytest.mark.parametrize("planes", [None, 3])
+@pytest.mark.parametrize("layout", ["class-major", "scattered"])
+def test_class_chunk_ranges_cover_every_mask_word(planes, layout):
+    """Each class's range holds every non-zero word of its clause-space
+    masks, an empty class gets ``lo == hi``, and at a capacity-padded
+    width only the first ``ceil(n_clauses / 32)`` chunks count."""
+    rng, _, tm_ = _program(13, C=30, weighted=planes is not None, zero_class=True)
+    plan = compress.decode_to_plan(tm_)
+    i_cap = plan.n_includes + 70  # capacity: chunks past the clauses
+    _, last, mp, mn = ops.plan_to_popcount_operands(
+        plan, i_cap, 7, weight_planes=planes
+    )
+    if layout == "scattered":
+        mp, mn = _scattered_masks(rng, last, 7, planes)
+    ends = torch.from_numpy(ops.clause_ends(last))
+    n_chunks = -(-ends.numel() // 32)
+    width = -(-i_cap // 32)
+    assert width > n_chunks
+    cpos, cneg = kernel.clause_space_masks(from_u32(mp), from_u32(mn), ends, width)
+    # a word past the clauses, as a malformed padded mask could hold
+    cpos[..., 0, n_chunks] = 1
+    ranges = kernel.class_chunk_ranges(cpos, cneg, n_chunks)
+    assert ranges.dtype == torch.int32 and ranges.shape == (7, 2)
+    live = ((cpos | cneg) != 0)[..., :n_chunks]
+    live = live.any(dim=0) if live.dim() == 3 else live
+    for m, (lo, hi) in enumerate(ranges.tolist()):
+        chunks = torch.nonzero(live[m]).flatten().tolist()
+        if chunks:
+            assert (lo, hi) == (chunks[0], chunks[-1] + 1)
+        else:
+            assert lo == hi
+    assert not live[6].any() and ranges[6].tolist() == [0, 0]
+    if layout == "class-major":
+        assert not live[2].any() and ranges[2].tolist() == [0, 0]
+        assert int((ranges[:, 1] - ranges[:, 0]).sum()) < 2 * n_chunks
+    else:
+        assert int((ranges[:, 1] - ranges[:, 0]).sum()) > 3 * n_chunks
+    # the full width counts the stray word past the clauses
+    assert kernel.class_chunk_ranges(cpos, cneg)[0, 1] == n_chunks + 1
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_popcount_program_holds_class_ranges(weighted):
+    """The engine's program carries the class ranges at the capacity
+    shape ``[m_cap, 2]``; a 10 x 200 class-major machine walks 70
+    (class, chunk) pairs over its 63 chunks (7 of 9 class borders fall
+    inside a chunk)."""
+    from repro_torch.accel.capacity import CapacityPlan
+    from repro_torch.accel.engines import PopcountEngine
+
+    rng = np.random.default_rng(14)
+    M, C, F = 10, 200, 24
+    acts = np.zeros((M, C, 2 * F), bool)
+    feats = rng.integers(0, F, (M, C))
+    acts[np.arange(M)[:, None], np.arange(C), 2 * feats] = True
+    w = rng.integers(1, 200, (M, C)) if weighted else None
+    model = compress.encode(TMConfig(M, C, F), acts, w)
+    planes = 8 if weighted else 1
+    cap = CapacityPlan(instruction_capacity=2100, feature_capacity=F,
+                       class_capacity=12, batch_words=1, weight_planes=planes)
+    engine = PopcountEngine(cap, device="cpu")
+    prog = engine.program(model)
+    assert prog["class_ranges"].shape == (12, 2)
+    assert prog["class_ranges"].dtype == torch.int32
+    assert prog["class_chunks"] == 70 and prog["plane_chunks"] == planes * 63
+    assert prog["class_ranges"][10:].tolist() == [[0, 0], [0, 0]]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("weighted,w", [(False, 7), (True, 7), (True, 37)])
 def test_cuda_kernel_matches_plain_twin(weighted, w):

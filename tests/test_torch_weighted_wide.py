@@ -3,7 +3,7 @@ the default engine (``popcount``) at eight and sixteen weight planes:
 class sums and predictions equal to the benchmark's plain reference
 (``tmbench/reference/classsums.py``), ``batch.launch`` carrying the
 program's weight planes x clause chunks, the ``program.build`` span and
-the ``plane_chunk_words`` counter.  The ``cuda`` case serves the
+the ``plane_chunk_words`` and ``class_chunk_words`` counters.  The ``cuda`` case serves the
 integer-weighted MNIST machine at its full width (10 x 2,000 x 784,
 weights to 255) and holds ``tm_popcount`` to its plain twin there; it
 skips without a card:
@@ -97,6 +97,13 @@ def test_weighted_machine_served_exact_with_planes_and_chunks(w_max, planes):
     assert build["arg"][0] == sum(m.nbytes for m in masks) > 0
     assert build["end_ns"][0] >= build["start_ns"][0]
     assert acc.metrics.plane_chunk_words == 3 * 2 * planes * chunks
+    # the reduce walks 11 (class, chunk) pairs over the 9 chunks: classes
+    # of 95, 96 and 96 clauses span chunks 0-2, 2-5 and 5-8
+    assert acc.registry.get("w").program["class_chunks"] == 11
+    assert acc.metrics.class_chunk_words == 3 * 2 * 11
+    summary = acc.metrics.summary()
+    assert "class_chunk_words" not in summary
+    assert "plane_chunk_words" not in summary
 
 
 def test_weightless_machine_launches_one_plane_and_builds_unlogged():
@@ -113,12 +120,16 @@ def test_weightless_machine_launches_one_plane_and_builds_unlogged():
     assert acc.registry.get("u").program["plane_chunks"] == chunks
     assert acc.metrics.spans().size == 0
     assert acc.metrics.plane_chunk_words == 1 * chunks
+    class_chunks = acc.registry.get("u").program["class_chunks"]
+    assert chunks < class_chunks <= M * chunks
+    assert acc.metrics.class_chunk_words == 1 * class_chunks
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         acc.infer("u", x[32:])
     launch = acc.metrics.spans()
     launch = launch[launch["name"] == "batch.launch"]
     assert launch.size == 1 and launch["arg"][0] == chunks
     assert acc.metrics.plane_chunk_words == 2 * chunks
+    assert acc.metrics.class_chunk_words == 2 * class_chunks
 
 
 @pytest.mark.cuda
