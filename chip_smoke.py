@@ -14,7 +14,7 @@ features, ~17k includes, 8192 datapoints per flush) it
   2. holds each kernel against its plain PyTorch twin on the card with
      ``torch.equal`` (integer sums: tolerance 0), one weight plane and
      three, plus a ragged batch, a program with a zero-include class, and
-     the clause table and clause-space masks as the engine pads them;
+     two programs built on the host as the engine builds them;
   2b. holds the packing kernel (``pack_phase``) to its eager twin at the
      served shapes (8192 and 32768 rows x 784 features, 8192 x 1122) and
      times each beside its bytes bound and the twin's time;
@@ -3360,7 +3360,10 @@ def main() -> int:
     )
     from repro_torch.kernels.pack_literals import kernel as plk
     from repro_torch.kernels.tm_popcount import kernel as tmk
-    from repro_torch.kernels.tm_popcount.ops import plan_to_popcount_operands
+    from repro_torch.kernels.tm_popcount.ops import (
+        build_program,
+        plan_to_popcount_operands,
+    )
 
     if any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules):
         fail("the port pulled in jax or the reference package")
@@ -3440,20 +3443,18 @@ def main() -> int:
         "zero-include class": (operands(plan_z, I_CAP, None), lits),
     }
 
-    def engine_table(ops):
-        """The clause table padded to I_cap, its masks in clause space at
-        the capacity's chunk count and their class ranges, as
-        PopcountEngine builds them."""
-        ends = clause_ends(ops[1].cpu().numpy())
-        table = torch.zeros(ops[0].numel(), dtype=torch.int32, device=dev)
-        table[: ends.size] = torch.from_numpy(ends).to(dev)
-        masks = tmk.clause_space_masks(
-            ops[2], ops[3], table[: ends.size],
-            n_chunks=-(-ops[0].numel() // 32),
-        )
-        ranges = tmk.class_chunk_ranges(*masks, -(-ends.size // 32))
-        return {"clause_end": table, "n_clauses": int(ends.size),
-                "clause_masks": masks, "class_ranges": ranges}
+    # each case's program built on the card from its operands, and two as
+    # PopcountEngine builds them: on the host, then moved
+    programs = {
+        name: (tmk.popcount_program(*ops), packed)
+        for name, (ops, packed) in cases.items()
+    }
+    programs["engine build a@P=3"] = (build_program(
+        plan_a, I_SERVED, M_CAP, l2_cap=1568, weight_planes=3, device=dev
+    ), lits)
+    programs["engine build zero-include class"] = (build_program(
+        plan_z, I_CAP, M_CAP, l2_cap=1568, weight_planes=None, device=dev
+    ), lits)
 
     # the shapes that break the clause-chunk walk: n_clauses off a multiple
     # of 32 and chunks that straddle two classes (model a), a class with no
@@ -3471,13 +3472,9 @@ def main() -> int:
     if ends_a_np.size % 32 == 0 or straddle == 0:
         fail("model a no longer has a ragged clause count and straddling chunks")
     max_err = 0
-    for name, (ops, packed) in list(cases.items()) + [
-        ("engine table a@P=3", cases["main path a@P=3"]),
-        ("engine table zero-include class", cases["zero-include class"]),
-    ]:
-        table = engine_table(ops) if name.startswith("engine") else {}
-        got = tmk.tm_popcount(*ops, packed, **table)
-        want = tmk.tm_popcount_plain(*ops, packed)
+    for name, (program, packed) in programs.items():
+        got = tmk.tm_popcount(program, packed)
+        want = tmk.tm_popcount_plain(*program[:4], packed)
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         max_err = max(max_err, err)
@@ -3867,10 +3864,8 @@ def main() -> int:
     timings = {}
     for name in ("P=1 W=256", "P=3 W=256", "main path a@P=3"):
         ops, packed = cases[name]
-        # as the engine calls it: the clause table and the clause-space
-        # masks built at program time
-        table = engine_table(ops)
-        k_ms = median_ms(lambda: tmk.tm_popcount(*ops, packed, **table))
+        program = programs[name][0]  # built once, as the engine builds it
+        k_ms = median_ms(lambda: tmk.tm_popcount(program, packed))
         p_ms = median_ms(lambda: tmk.tm_popcount_plain(*ops, packed), reps=20)
         bound_ms, bound_by, n_bytes, n_ops = kernel_bound(ops, packed)
         timings[name] = (k_ms, p_ms, bound_ms, bound_by)
@@ -3882,7 +3877,7 @@ def main() -> int:
             activities=[torch.profiler.ProfilerActivity.CUDA]
         ) as prof:
             for _ in range(REPS):
-                tmk.tm_popcount(*ops, packed, **table)
+                tmk.tm_popcount(program, packed)
             torch.cuda.synchronize()
         for ev in prof.key_averages():
             if "kernel" in ev.key and ev.count:

@@ -146,9 +146,6 @@ class EngineBase:
     # runs) puts a list here; ``_to_host`` appends the stamp at which the
     # wait began
     sync_marks: Optional[list] = None
-    # a server puts its ``ServeMetrics`` here; an engine that times its
-    # program build logs it there while a profile runs
-    span_log: Optional[Any] = None
 
     def __init__(self, plan: CapacityPlan, device=None):
         self.plan = plan

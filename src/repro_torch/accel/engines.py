@@ -37,7 +37,6 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..core.bits import from_u32
 from ..core.compress import CompressedModel, decode_to_plan
 from ..core.interp import interpret_stream, pack_features, pad_plan, plan_class_sums
 from ..core.tm import literals
@@ -45,11 +44,8 @@ from ..device import resolve_device
 from ..dist.sharding import make_mesh
 from ..dist.tm_sharded import TMShardedConfig, build_tm_sharded, fill_clause_tables
 from ..kernels.pack_literals.kernel import pack_literals
-from ..kernels.tm_popcount.kernel import (
-    class_chunk_ranges, clause_space_masks, tm_popcount,
-)
-from ..kernels.tm_popcount.ops import clause_ends, plan_to_popcount_operands
-from ..serve_tm.metrics import Span, stamp, torch_profiler
+from ..kernels.tm_popcount.kernel import tm_popcount
+from ..kernels.tm_popcount.ops import build_program
 from .capacity import CapacityExceeded
 from .engine import EngineBase, register_engine
 
@@ -230,74 +226,34 @@ class PopcountEngine(EngineBase):
     needs_decoded_plan = True
 
     def _program(self, model: CompressedModel, decoded=None) -> Dict[str, Any]:
-        """The program's operands on the device, ``plane_chunks``: the
-        plan's weight planes x its 32-clause chunks, and ``class_chunks``:
-        the (class, chunk) pairs the reduce walks, summed over the class
-        ranges.  While a profile runs the build is logged as ``program.build``
-        (tag: planes, arg: bytes of the clause-space masks)."""
-        log = self.span_log if torch_profiler._is_profiler_enabled else None
-        start = stamp() if log is not None else None
+        """The kernel's ``PopcountProgram`` on the device and
+        ``plane_chunks``: the plan's weight planes x its 32-clause
+        chunks."""
         p = self.plan
         plan = decoded if decoded is not None else decode_to_plan(model)
         # masks are built at the PLAN's plane depth (not the model's), so
         # the mask shape is a capacity constant: weighted and weightless
         # models swap through one operand signature
-        lit_idx, last, mask_pos, mask_neg = plan_to_popcount_operands(
+        program = build_program(
             plan, p.instruction_capacity, p.class_capacity,
-            l2_cap=2 * p.feature_capacity,
-            weight_planes=p.weight_planes,
+            l2_cap=2 * p.feature_capacity, weight_planes=p.weight_planes,
+            device=self.device,
         )
-        # the clause table the kernel walks and the masks in clause space,
-        # both padded to capacity shapes
-        ends = clause_ends(last)
-        clause_end = np.zeros(p.instruction_capacity, np.int32)
-        clause_end[: ends.size] = ends
-        cmasks = clause_space_masks(
-            from_u32(mask_pos), from_u32(mask_neg), torch.from_numpy(ends),
-            n_chunks=-(-p.instruction_capacity // 32),
-        )
-        n_chunks = -(-int(ends.size) // 32)
-        ranges = class_chunk_ranges(*cmasks, n_chunks)
-        dev = self.device
-        prog = {
-            "lit_idx": torch.from_numpy(lit_idx).to(dev),
-            "last": torch.from_numpy(last).to(dev),
-            "clause_end": torch.from_numpy(clause_end).to(dev),
-            "n_clauses": int(ends.size),
-            "clause_masks": tuple(m.to(dev) for m in cmasks),
-            "class_ranges": ranges.to(dev),
-            "mask_pos": from_u32(mask_pos, dev),
-            "mask_neg": from_u32(mask_neg, dev),
+        return {
+            "popcount": program,
+            "plane_chunks": p.weight_planes * -(-program.n_clauses // 32),
             "n_classes": model.n_classes,
             "n_features": model.n_features,
-            "plane_chunks": p.weight_planes * n_chunks,
-            "class_chunks": int((ranges[:, 1] - ranges[:, 0]).sum()),
         }
-        if log is not None:
-            log.record_span(
-                Span.PROGRAM_BUILD, start, stamp(), tag=p.weight_planes,
-                arg=sum(m.nbytes for m in cmasks),
-            )
-        return prog
 
     def class_sums(self, prog: Dict[str, Any], x: np.ndarray) -> np.ndarray:
         B = x.shape[0]
         self._pad_x(x)
         with self.on_device():
             packed = pack_literals(self.staged_on_device())
-            operands = (
-                prog["lit_idx"], prog["last"], prog["mask_pos"],
-                prog["mask_neg"], packed,
-            )
-            self._record_signature(
-                *operands, prog["clause_end"], *prog["clause_masks"],
-                prog["class_ranges"],
-            )
-            sums = tm_popcount(
-                *operands, clause_end=prog["clause_end"],
-                n_clauses=prog["n_clauses"], clause_masks=prog["clause_masks"],
-                class_ranges=prog["class_ranges"],
-            )
+            program = prog["popcount"]
+            self._record_signature(*program.tensors(), packed)
+            sums = tm_popcount(program, packed)
             # the device-to-host copy waits for the kernel, so the staging
             # block is free for the next batch when this returns
             return self._to_host(sums[: prog["n_classes"], :B].T)

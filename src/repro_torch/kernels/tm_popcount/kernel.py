@@ -10,7 +10,8 @@ resets; emitted words are bit-transposed in 32x32 tiles and
 
 against the polarity-bank bitplanes (``p`` only for 3-D weighted masks).
 
-``tm_popcount`` is the one entry point.  On CPU tensors it runs
+``popcount_program`` builds a program once and ``tm_popcount(program,
+packed_lits)`` is the one entry point.  On CPU tensors it runs
 ``tm_popcount_plain``; on CUDA tensors it launches the Hopper kernel of
 ``csrc/tm_popcount.cu`` (two launches: compact clause words, then the
 reduction over 32-clause chunks) or raises; there is no fallback between
@@ -18,7 +19,8 @@ the two.  The kernel reads the masks in clause space
 (``clause_space_masks``): a clause reaches the sums only through the mask
 bits at its last instruction, so gathering those bits gives the same
 sums.  Its reduce walks, for each class, only the clause chunks where the
-class's masks have a bit (``class_chunk_ranges``).  ``launches`` counts the CUDA launches and nothing else.  All
+class's masks have a bit (``class_chunk_ranges``).  ``launches`` counts
+the CUDA launches and nothing else.  All
 packed words are int32 tensors holding uint32 bit patterns
 (``core.bits``).
 """
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -184,83 +186,113 @@ def tm_popcount_plain(
     return popcount_reduce(emit_words, mask_pos, mask_neg)
 
 
-def _check_operands(lit_idx, last_flag, mask_pos, mask_neg, packed_lits):
-    ops = {
-        "lit_idx": lit_idx, "last_flag": last_flag, "mask_pos": mask_pos,
-        "mask_neg": mask_neg, "packed_lits": packed_lits,
-    }
+class PopcountProgram(NamedTuple):
+    """A program of ``tm_popcount``, built once by ``popcount_program``.
+
+    The instruction-space operands (the reference's and the plain twin's)
+    and what the kernel reads: each clause's last instruction, padded to
+    ``I_cap``, with ``n_clauses`` valid entries; the masks in clause space
+    at the capacity width ``ceil(I_cap / 32)``; each class's range of
+    clause chunks, int32 ``[m_cap, 2]``."""
+
+    lit_idx: torch.Tensor  # int32[I_cap]
+    last_flag: torch.Tensor  # int32[I_cap]
+    mask_pos: torch.Tensor  # int32[(P,) m_cap, ceil(I_cap/32)]
+    mask_neg: torch.Tensor
+    clause_end: torch.Tensor  # int32[I_cap]
+    n_clauses: int
+    clause_masks: Tuple[torch.Tensor, torch.Tensor]
+    class_ranges: torch.Tensor  # int32[m_cap, 2]
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """Every tensor of the program, in field order."""
+        return (self.lit_idx, self.last_flag, self.mask_pos, self.mask_neg,
+                self.clause_end, *self.clause_masks, self.class_ranges)
+
+    def to(self, device) -> "PopcountProgram":
+        """The program with each tensor moved to ``device``."""
+        li, last, mp, mn, ends, cpos, cneg, ranges = (
+            t.to(device) for t in self.tensors()
+        )
+        return PopcountProgram(
+            li, last, mp, mn, ends, self.n_clauses, (cpos, cneg), ranges
+        )
+
+
+def popcount_program(
+    lit_idx: torch.Tensor,  # int32[I_cap]
+    last_flag: torch.Tensor,  # int32[I_cap]
+    mask_pos: torch.Tensor,  # int32[(P,) m_cap, <= ceil(I_cap/32)]
+    mask_neg: torch.Tensor,  # same shape as mask_pos
+) -> PopcountProgram:
+    """Check the instruction-space operands once and derive, on their
+    device, the clause table, the clause-space masks and the class
+    ranges the kernel reads.  Masks with fewer chunks than the
+    instructions need are read as zero-padded."""
+    ops = {"lit_idx": lit_idx, "last_flag": last_flag, "mask_pos": mask_pos,
+           "mask_neg": mask_neg}
+    dev = lit_idx.device
     for name, t in ops.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-        if t.device != packed_lits.device:
-            raise ValueError(
-                f"{name} is on {t.device} but packed_lits on "
-                f"{packed_lits.device}"
-            )
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device} but lit_idx on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"tm_popcount runs on 'cpu' or 'cuda' tensors, got {dev}"
+        )
     i_cap = lit_idx.shape[0]
     if lit_idx.dim() != 1 or last_flag.shape != lit_idx.shape or i_cap == 0:
         raise ValueError(
             f"lit_idx and last_flag must be equal non-empty 1-D vectors, got "
             f"{tuple(lit_idx.shape)} and {tuple(last_flag.shape)}"
         )
+    if not lit_idx.is_contiguous():
+        raise ValueError("lit_idx must be contiguous")
     if mask_pos.shape != mask_neg.shape or mask_pos.dim() not in (2, 3):
         raise ValueError(
             f"mask_pos/mask_neg must share a [m_cap, chunks] or [P, m_cap, "
             f"chunks] shape, got {tuple(mask_pos.shape)} and "
             f"{tuple(mask_neg.shape)}"
         )
-    if mask_pos.shape[-1] > -(-i_cap // 32) or 0 in mask_pos.shape:
+    width = -(-i_cap // 32)
+    if mask_pos.shape[-1] > width or 0 in mask_pos.shape:
         raise ValueError(
             f"masks of shape {tuple(mask_pos.shape)} do not fit "
-            f"{i_cap} instructions ({-(-i_cap // 32)} chunks)"
+            f"{i_cap} instructions ({width} chunks)"
         )
-    if packed_lits.dim() != 2 or 0 in packed_lits.shape:
-        raise ValueError(
-            f"packed_lits must be a non-empty [L2, W], got "
-            f"{tuple(packed_lits.shape)}"
-        )
+    ends = torch.nonzero(last_flag == 1).flatten().to(torch.int32)
+    n = ends.numel()
+    cmasks = clause_space_masks(mask_pos, mask_neg, ends, width)
+    return PopcountProgram(
+        lit_idx, last_flag, mask_pos, mask_neg, F.pad(ends, (0, i_cap - n)),
+        n, cmasks, class_chunk_ranges(*cmasks, -(-n // 32)),
+    )
 
 
 def tm_popcount(
-    lit_idx: torch.Tensor,
-    last_flag: torch.Tensor,
-    mask_pos: torch.Tensor,
-    mask_neg: torch.Tensor,
-    packed_lits: torch.Tensor,
-    *,
-    clause_end: Optional[torch.Tensor] = None,
-    n_clauses: Optional[int] = None,
-    clause_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-    class_ranges: Optional[torch.Tensor] = None,
+    program: PopcountProgram, packed_lits: torch.Tensor  # int32[L2, W]
 ) -> torch.Tensor:
     """Popcount-bitplane inference -> int32[m_cap, W*32] class sums.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel or
-    raise.  ``clause_end`` (int32, the indices where ``last_flag == 1``,
-    padded as the caller likes) with ``n_clauses`` valid entries is the
-    program-time clause table the kernel walks; it is derived from
-    ``last_flag`` when not given.  ``clause_masks`` are ``mask_pos`` and
-    ``mask_neg`` in clause space for that table (``clause_space_masks``,
-    any width of at least ``ceil(n_clauses / 32)`` words), built once per
-    program; the kernel gathers them on the device when not given.
-    ``class_ranges`` are those masks' ``class_chunk_ranges`` over the
-    first ``ceil(n_clauses / 32)`` chunks, also built once per program and
-    derived on the device when not given.  The plain twin reads none of
-    these."""
-    _check_operands(lit_idx, last_flag, mask_pos, mask_neg, packed_lits)
-    dev = packed_lits.device
-    if dev.type == "cpu":
-        return tm_popcount_plain(
-            lit_idx, last_flag, mask_pos, mask_neg, packed_lits
-        )
-    if dev.type != "cuda":
+    CPU tensors run the plain twin on the program's instruction-space
+    operands; CUDA tensors launch the kernel on the rest."""
+    dev = program.lit_idx.device
+    if packed_lits.dtype != torch.int32:
+        raise TypeError(f"packed_lits must be int32, got {packed_lits.dtype}")
+    if packed_lits.device != dev:
         raise ValueError(
-            f"tm_popcount runs on 'cpu' or 'cuda' tensors, got {dev}"
+            f"packed_lits is on {packed_lits.device} but the program on {dev}"
         )
-    return _tm_popcount_cuda(
-        lit_idx, last_flag, mask_pos, mask_neg, packed_lits,
-        clause_end, n_clauses, clause_masks, class_ranges,
-    )
+    if (packed_lits.dim() != 2 or 0 in packed_lits.shape
+            or not packed_lits.is_contiguous()):
+        raise ValueError(
+            f"packed_lits must be a non-empty contiguous [L2, W], got "
+            f"{tuple(packed_lits.shape)}"
+        )
+    if dev.type == "cpu":
+        return tm_popcount_plain(*program[:4], packed_lits)
+    return _tm_popcount_cuda(program, packed_lits)
 
 
 @functools.cache
@@ -274,49 +306,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _tm_popcount_cuda(
-    lit_idx, last_flag, mask_pos, mask_neg, packed_lits, clause_end,
-    n_clauses, clause_masks, class_ranges,
-):
+def _tm_popcount_cuda(program: PopcountProgram, packed_lits: torch.Tensor):
     dev = packed_lits.device
-    if clause_end is None:
-        clause_end = torch.nonzero(last_flag == 1).flatten().to(torch.int32)
-        n_clauses = clause_end.numel()
-    elif n_clauses is None or not 0 <= n_clauses <= clause_end.numel():
-        raise ValueError("clause_end needs n_clauses within its length")
-    if clause_end.device != dev or clause_end.dtype != torch.int32:
-        raise ValueError("clause_end must be int32 on the operands' device")
-    n_chunks = -(-n_clauses // 32)
-    if clause_masks is None:
-        clause_masks = clause_space_masks(
-            mask_pos, mask_neg, clause_end[:n_clauses]
-        )
-    cpos, cneg = clause_masks
-    if not (
-        cpos.shape == cneg.shape and cpos.shape[:-1] == mask_pos.shape[:-1]
-        and cpos.shape[-1] >= n_chunks and cpos.dtype == cneg.dtype == torch.int32
-        and cpos.device == cneg.device == dev
-    ):
-        raise ValueError(
-            f"clause_masks must be int32 on {dev}, shaped "
-            f"{tuple(mask_pos.shape[:-1])} + (>= {n_chunks},), got "
-            f"{tuple(cpos.shape)} and {tuple(cneg.shape)}"
-        )
+    lit_idx, n_clauses = program.lit_idx, program.n_clauses
+    cpos, cneg = program.clause_masks
     planes, m_cap = (1, cpos.shape[0]) if cpos.dim() == 2 else cpos.shape[:2]
-    if class_ranges is None:
-        class_ranges = class_chunk_ranges(cpos, cneg, n_chunks)
-    if not (
-        class_ranges.shape == (m_cap, 2) and class_ranges.dtype == torch.int32
-        and class_ranges.device == dev
-    ):
-        raise ValueError(
-            f"class_ranges must be int32 [{m_cap}, 2] on {dev}, got "
-            f"{class_ranges.dtype} {tuple(class_ranges.shape)} on "
-            f"{class_ranges.device}"
-        )
-    tensors = (lit_idx, packed_lits, clause_end, cpos, cneg, class_ranges)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("tm_popcount operands must be contiguous")
+    n_chunks = -(-n_clauses // 32)
     l2, w = packed_lits.shape
     # one allocation, as rows of the sums: the sums [m_cap][32 w], then
     # the compact clause words [w][k_pad] (the tail rows written 0)
@@ -325,9 +320,9 @@ def _tm_popcount_cuda(
                         device=dev)
     out = block[:m_cap]
     err = _lib().tm_popcount_launch(
-        lit_idx.data_ptr(), lit_idx.shape[0], clause_end.data_ptr(),
+        lit_idx.data_ptr(), lit_idx.shape[0], program.clause_end.data_ptr(),
         n_clauses, packed_lits.data_ptr(), l2, w, cpos.data_ptr(),
-        cneg.data_ptr(), class_ranges.data_ptr(), planes, m_cap,
+        cneg.data_ptr(), program.class_ranges.data_ptr(), planes, m_cap,
         cpos.shape[-1],
         out.data_ptr() + 4 * out.numel(), k_pad, out.data_ptr(),
         _build.stream(dev),

@@ -3,7 +3,8 @@
 ``DecodedPlan -> (lit_idx, last, mask_pos, mask_neg)``: the per-include
 operand vectors of the interpreter path plus the per-class polarity-bank
 selection bitplanes the popcount reduction keys on (numpy, bit-identical
-to ``repro.kernels.tm_popcount.ops``).  A malformed program is rejected
+to ``repro.kernels.tm_popcount.ops``); ``build_program`` turns them into
+the kernel's ``PopcountProgram`` on a device.  A malformed program is rejected
 here: a class id outside the accumulator bank or a literal slot outside
 the feature memory raises ``ValueError`` naming the instruction.
 """
@@ -18,7 +19,7 @@ import torch
 from ...core.bits import from_u32
 from ...core.compress import DecodedPlan
 from ..tm_interp.ops import clause_ends, plan_to_operands
-from .kernel import tm_popcount
+from .kernel import PopcountProgram, popcount_program, tm_popcount
 
 
 def pack_class_masks(
@@ -135,6 +136,26 @@ def plan_to_popcount_operands(
     return lit_idx, last, mask_pos, mask_neg
 
 
+def build_program(
+    plan: DecodedPlan,
+    i_cap: int,
+    m_cap: int,
+    *,
+    l2_cap: int | None,
+    weight_planes: int | None,
+    device: torch.device,
+) -> PopcountProgram:
+    """``plan_to_popcount_operands`` + ``popcount_program``, built on the
+    host; each tensor reaches ``device`` with one copy."""
+    lit_idx, last, mask_pos, mask_neg = plan_to_popcount_operands(
+        plan, i_cap, m_cap, l2_cap=l2_cap, weight_planes=weight_planes
+    )
+    return popcount_program(
+        torch.from_numpy(lit_idx), torch.from_numpy(last),
+        from_u32(mask_pos), from_u32(mask_neg),
+    ).to(device)
+
+
 def tm_popcount_class_sums(
     plan: DecodedPlan,
     packed_lits: torch.Tensor,  # int32[2F, W] (interleaved literal rows)
@@ -145,11 +166,8 @@ def tm_popcount_class_sums(
     """Compressed inference via the popcount path -> int32[m_cap, B], on
     the device of ``packed_lits`` (the kernel on CUDA, its plain twin on
     the CPU)."""
-    lit_idx, last, mask_pos, mask_neg = plan_to_popcount_operands(
-        plan, i_cap, m_cap, l2_cap=int(packed_lits.shape[0])
+    program = build_program(
+        plan, i_cap, m_cap, l2_cap=int(packed_lits.shape[0]),
+        weight_planes=None, device=packed_lits.device,
     )
-    dev = packed_lits.device
-    return tm_popcount(
-        torch.from_numpy(lit_idx).to(dev), torch.from_numpy(last).to(dev),
-        from_u32(mask_pos, dev), from_u32(mask_neg, dev), packed_lits,
-    )
+    return tm_popcount(program, packed_lits)

@@ -33,8 +33,7 @@ each lane, so a long-lived server holds a bounded history;
 The span log.  While a ``torch.profiler`` session runs anywhere in the
 process, the served path records spans into a fixed ring (``SPAN_NAMES``:
 the front door, each request, each batch and the five steps that tile
-it, the loop's idle wait and its yield between batches, and the
-``popcount`` engine's build of a program's operands), each with its
+it, the loop's idle wait and its yield between batches), each with its
 start and end on the ``time.perf_counter_ns()`` clock, the thread's CPU
 nanoseconds over it, its id and its parent's id; ``spans()`` returns
 them and ``profiler_offset_ns()`` maps them onto the profiler's clock.
@@ -59,7 +58,7 @@ import numpy as np
 # the one that started the profiler, such as the scheduler's)
 from torch.autograd import profiler as torch_profiler  # noqa: F401
 
-from .batching import PRIORITIES, WORD
+from .batching import PRIORITIES
 
 LATENCY_WINDOW = 65536  # completions kept per lane for the percentiles
 
@@ -78,15 +77,11 @@ class Span(enum.IntEnum):
     LOOP_WAIT = 8   # the loop waiting for a wake or its window, no batch due
     LOOP_YIELD = 9  # the loop's yield between back-to-back batches: the
                     # submitters' wake callbacks and the interpreter's lock
-    PROGRAM_BUILD = 10  # PopcountEngine._program's operand build (a
-                        # publish or hot-swap); tag: weight planes, arg:
-                        # bytes of the clause-space masks
 
 
 SPAN_NAMES = (
     "front_door", "request", "batch", "batch.lock_wait", "batch.fill",
     "batch.launch", "batch.sync", "batch.demux", "loop.wait", "loop.yield",
-    "program.build",
 )
 SPAN_CAPACITY = 1 << 20  # ring entries: 7 int64 columns, 56 MiB
 # one ring row: name, start_ns, end_ns, cpu_ns, parent, tag, arg; a span's
@@ -142,12 +137,6 @@ class ServeMetrics:
         self.failovers = 0       # requests served after another node failed
         self.quarantines = 0     # circuit-breaker opened on this node
         self.probes = 0          # half-open probes admitted to this node
-        # batch words x the program's weight planes x its 32-clause chunks,
-        # summed over batches: the units of the popcount reduce's work
-        self.plane_chunk_words = 0
-        # batch words x the (class, chunk) pairs the reduce walks, summed:
-        # its chunk transposes
-        self.class_chunk_words = 0
         # a list, not a bounded window: the benchmark reads it by index
         self.engine_s: List[float] = []
         self.swap_s: List[float] = []
@@ -176,18 +165,12 @@ class ServeMetrics:
         self.span_offsets_ns: List[Tuple[int, int]] = []
 
     def record_batch(
-        self, rows: int, capacity: int, elapsed_s: float, completed: int,
-        plane_chunks: int, class_chunks: int,
+        self, rows: int, capacity: int, elapsed_s: float, completed: int
     ) -> None:
-        """One engine batch of ``capacity`` rows, ``rows`` of them served;
-        ``plane_chunks`` is its program's weight planes x clause chunks and
-        ``class_chunks`` the (class, chunk) pairs its reduce walks (0 for
-        an engine that does not record them)."""
+        """One engine batch of ``capacity`` rows, ``rows`` of them served."""
         self.batches += 1
         self.rows += rows
         self.padded_rows += capacity
-        self.plane_chunk_words += capacity // WORD * plane_chunks
-        self.class_chunk_words += capacity // WORD * class_chunks
         self.engine_s.append(elapsed_s)
         self.requests_completed += completed
 

@@ -265,8 +265,7 @@ class Scheduler:
             completed = Batcher.demux(spans, preds, sums)
             plane_chunks = entry.program.get("plane_chunks", 0)
             server.metrics.record_batch(
-                X.shape[0], server.capacity.batch_capacity, dt, completed,
-                plane_chunks, entry.program.get("class_chunks", 0),
+                X.shape[0], server.capacity.batch_capacity, dt, completed
             )
             for handle, _, _, _ in spans:
                 if handle.failed:

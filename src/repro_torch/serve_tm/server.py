@@ -92,7 +92,6 @@ class TMServer:
         )
         self.batcher = Batcher(self.capacity.batch_capacity)
         self.metrics = ServeMetrics()
-        self.executor.span_log = self.metrics
         self.scheduler = Scheduler(
             self, max_wait_ms=max_wait_ms, lane_depth_rows=lane_depth_rows
         )

@@ -207,13 +207,15 @@ def _operands(device):
 
 def test_wrapper_raises_on_a_device_it_has_no_kernel_for():
     with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
-        kernel.tm_popcount(*_operands("meta"))
+        kernel.popcount_program(*_operands("meta")[:4])
 
 
 def test_cpu_tensors_run_the_plain_twin_and_count_no_launch():
     before = kernel.launches
     args = _operands("cpu")
-    assert torch.equal(kernel.tm_popcount(*args), kernel.tm_popcount_plain(*args))
+    program = kernel.popcount_program(*args[:4])
+    assert torch.equal(kernel.tm_popcount(program, args[4]),
+                       kernel.tm_popcount_plain(*args))
     assert kernel.launches == before
 
 
@@ -236,8 +238,9 @@ def test_cuda_tensors_launch_the_kernel_not_the_twin(monkeypatch):
 
     want = kernel.tm_popcount_plain(*args)
     monkeypatch.setattr(kernel, "tm_popcount_plain", no_twin)
+    program = kernel.popcount_program(*args[:4])
     before = kernel.launches
-    got = kernel.tm_popcount(*args)
+    got = kernel.tm_popcount(program, args[4])
     assert kernel.launches == before + 2
     assert torch.equal(got, want)
 

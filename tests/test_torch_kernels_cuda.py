@@ -191,26 +191,19 @@ def test_tm_popcount_kernel_matches_plain_twin(
     ops, lits = _popcount_case(
         dev, counts, m_cap, w, planes, 13, len(counts), scattered
     )
-    last = ops[1].cpu().numpy()
-    ends = clause_ends(last)
-    # the engine's table: padded to capacity, its masks in clause space
-    # padded to the capacity's chunk count, their class ranges
-    table = torch.zeros(last.size, dtype=torch.int32, device=dev)
-    table[: ends.size] = torch.from_numpy(ends).to(dev)
-    masks = popcount_kernel.clause_space_masks(
-        ops[2], ops[3], table[: ends.size], n_chunks=-(-last.size // 32)
-    )
-    ranges = popcount_kernel.class_chunk_ranges(*masks, -(-ends.size // 32))
+    ends = clause_ends(ops[1].cpu().numpy())
+    # one program: its clause table padded to capacity, its masks in clause
+    # space at the capacity's chunk count, their class ranges
+    program = popcount_kernel.popcount_program(*ops)
+    assert program.n_clauses == ends.size
+    assert torch.equal(program.clause_end[: ends.size].cpu(), torch.from_numpy(ends))
+    assert program.clause_masks[0].shape[-1] == -(-ops[0].numel() // 32)
+    ranges = program.class_ranges
     want = popcount_kernel.tm_popcount_plain(*ops, lits)
     before = popcount_kernel.launches
-    bare = popcount_kernel.tm_popcount(*ops, lits)
+    got = popcount_kernel.tm_popcount(program, lits)
     assert popcount_kernel.launches == before + 2
-    served = popcount_kernel.tm_popcount(
-        *ops, lits, clause_end=table, n_clauses=int(ends.size), clause_masks=masks,
-        class_ranges=ranges,
-    )
-    for got in (bare, served):
-        assert torch.equal(got, want)
+    assert torch.equal(got, want)
     assert want.any()
     live = (ops[2] | ops[3]) != 0
     live = (live.any(dim=0) if live.dim() == 3 else live).any(dim=1)
@@ -218,7 +211,7 @@ def test_tm_popcount_kernel_matches_plain_twin(
         if n == 0 and not scattered:
             assert not live[m]
     for m in torch.nonzero(~live).flatten().tolist():
-        assert not want[m].any() and not bare[m].any() and not served[m].any()
+        assert not want[m].any() and not got[m].any()
     spans = (ranges[:, 1] - ranges[:, 0]).sum().item()
     if scattered:
         assert spans > 2 * -(-ends.size // 32)  # wide ranges

@@ -106,7 +106,8 @@ def test_plain_and_ref_match_reference(seed, weighted, planes, slack, zero):
     np.testing.assert_array_equal(kernel.tm_popcount_plain(*targs).numpy(), want)
     np.testing.assert_array_equal(tm_popcount_ref(*targs).numpy(), want)
     # the wrapper on CPU tensors is the plain twin
-    np.testing.assert_array_equal(kernel.tm_popcount(*targs).numpy(), want)
+    program = kernel.popcount_program(*targs[:4])
+    np.testing.assert_array_equal(kernel.tm_popcount(program, packed).numpy(), want)
     if mp.ndim == 2:  # the reference oracle takes 2-D masks only
         np.testing.assert_array_equal(np.asarray(jref(*jargs)), want)
     if zero:
@@ -199,19 +200,18 @@ def test_wrapper_checks_operands():
         compress.decode_to_plan(tm_), 512, 6
     )
     args = [torch.from_numpy(li), torch.from_numpy(last), from_u32(mp),
-            from_u32(mn), torch.zeros((80, 2), dtype=torch.int32)]
+            from_u32(mn)]
     bad_dtype = list(args)
     bad_dtype[0] = bad_dtype[0].long()
     with pytest.raises(TypeError, match="int32"):
-        kernel.tm_popcount(*bad_dtype)
+        kernel.popcount_program(*bad_dtype)
     bad_masks = list(args)
     bad_masks[2] = bad_masks[3] = torch.zeros((6, 50), dtype=torch.int32)
     with pytest.raises(ValueError, match="do not fit"):
-        kernel.tm_popcount(*bad_masks)
-    bad_lits = list(args)
-    bad_lits[4] = torch.zeros((80,), dtype=torch.int32)
+        kernel.popcount_program(*bad_masks)
+    program = kernel.popcount_program(*args)
     with pytest.raises(ValueError, match="packed_lits"):
-        kernel.tm_popcount(*bad_lits)
+        kernel.tm_popcount(program, torch.zeros((80,), dtype=torch.int32))
 
 
 def _clause_space_sums(li, last, mp, mn, packed, n_chunks=None):
@@ -347,8 +347,8 @@ def test_class_chunk_ranges_cover_every_mask_word(planes, layout):
 
 @pytest.mark.parametrize("weighted", [False, True])
 def test_popcount_program_holds_class_ranges(weighted):
-    """The engine's program carries the class ranges at the capacity
-    shape ``[m_cap, 2]``; a 10 x 200 class-major machine walks 70
+    """The engine's ``PopcountProgram`` carries the class ranges at the
+    capacity shape ``[m_cap, 2]``; a 10 x 200 class-major machine walks 70
     (class, chunk) pairs over its 63 chunks (7 of 9 class borders fall
     inside a chunk)."""
     from repro_torch.accel.capacity import CapacityPlan
@@ -366,10 +366,11 @@ def test_popcount_program_holds_class_ranges(weighted):
                        class_capacity=12, batch_words=1, weight_planes=planes)
     engine = PopcountEngine(cap, device="cpu")
     prog = engine.program(model)
-    assert prog["class_ranges"].shape == (12, 2)
-    assert prog["class_ranges"].dtype == torch.int32
-    assert prog["class_chunks"] == 70 and prog["plane_chunks"] == planes * 63
-    assert prog["class_ranges"][10:].tolist() == [[0, 0], [0, 0]]
+    ranges = prog["popcount"].class_ranges
+    assert ranges.shape == (12, 2) and ranges.dtype == torch.int32
+    assert int((ranges[:, 1] - ranges[:, 0]).sum()) == 70
+    assert prog["plane_chunks"] == planes * 63
+    assert ranges[10:].tolist() == [[0, 0], [0, 0]]
 
 
 @pytest.mark.cuda
@@ -389,8 +390,9 @@ def test_cuda_kernel_matches_plain_twin(weighted, w):
         from_u32(mp, dev), from_u32(mn, dev),
         pack_literals(torch.from_numpy(x).to(dev)),
     )
+    program = kernel.popcount_program(*args[:4])
     before = kernel.launches
-    got = kernel.tm_popcount(*args)
+    got = kernel.tm_popcount(program, args[4])
     assert kernel.launches == before + 2
     torch.testing.assert_close(got, kernel.tm_popcount_plain(*args), rtol=0, atol=0)
 

@@ -1,9 +1,8 @@
 """Integer-weighted machines served through ``Accelerator.for_models`` on
 the default engine (``popcount``) at eight and sixteen weight planes:
 class sums and predictions equal to the benchmark's plain reference
-(``tmbench/reference/classsums.py``), ``batch.launch`` carrying the
-program's weight planes x clause chunks, the ``program.build`` span and
-the ``plane_chunk_words`` and ``class_chunk_words`` counters.  The ``cuda`` case serves the
+(``tmbench/reference/classsums.py``) and ``batch.launch`` carrying the
+program's weight planes x clause chunks.  The ``cuda`` case serves the
 integer-weighted MNIST machine at its full width (10 x 2,000 x 784,
 weights to 255) and holds ``tm_popcount`` to its plain twin there; it
 skips without a card:
@@ -91,24 +90,11 @@ def test_weighted_machine_served_exact_with_planes_and_chunks(w_max, planes):
     spans = acc.metrics.spans()
     launch = spans[spans["name"] == "batch.launch"]
     assert launch.size == 3 and (launch["arg"] == planes * chunks).all()
-    build = spans[spans["name"] == "program.build"]
-    assert build.size == 1 and build["tag"][0] == planes
-    masks = acc.registry.get("w").program["clause_masks"]
-    assert build["arg"][0] == sum(m.nbytes for m in masks) > 0
-    assert build["end_ns"][0] >= build["start_ns"][0]
-    assert acc.metrics.plane_chunk_words == 3 * 2 * planes * chunks
-    # the reduce walks 11 (class, chunk) pairs over the 9 chunks: classes
-    # of 95, 96 and 96 clauses span chunks 0-2, 2-5 and 5-8
-    assert acc.registry.get("w").program["class_chunks"] == 11
-    assert acc.metrics.class_chunk_words == 3 * 2 * 11
-    summary = acc.metrics.summary()
-    assert "class_chunk_words" not in summary
-    assert "plane_chunk_words" not in summary
 
 
 def test_weightless_machine_launches_one_plane_and_builds_unlogged():
-    """One plane for a weightless machine; no profile, no ``program.build``,
-    and the counter counts all the same."""
+    """One plane for a weightless machine; no profile, no spans, and a
+    profiled batch's ``batch.launch`` carries the one plane's chunks."""
     M, C, F = 3, 40, 20
     actions, _ = _machine(3, M, C, F, 1)
     model = compress.encode(tm.TMConfig(M, C, F), actions)
@@ -119,17 +105,11 @@ def test_weightless_machine_launches_one_plane_and_builds_unlogged():
     chunks = -(-(M * C - 1) // 32)
     assert acc.registry.get("u").program["plane_chunks"] == chunks
     assert acc.metrics.spans().size == 0
-    assert acc.metrics.plane_chunk_words == 1 * chunks
-    class_chunks = acc.registry.get("u").program["class_chunks"]
-    assert chunks < class_chunks <= M * chunks
-    assert acc.metrics.class_chunk_words == 1 * class_chunks
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         acc.infer("u", x[32:])
     launch = acc.metrics.spans()
     launch = launch[launch["name"] == "batch.launch"]
     assert launch.size == 1 and launch["arg"][0] == chunks
-    assert acc.metrics.plane_chunk_words == 2 * chunks
-    assert acc.metrics.class_chunk_words == 2 * class_chunks
 
 
 @pytest.mark.cuda
@@ -154,13 +134,11 @@ def test_iwtm_mnist_width_kernel_matches_plain_twin_and_reference():
     block = np.zeros((cap.batch_capacity, cap.feature_capacity), np.uint8)
     block[: x.shape[0], :F] = x
     packed = pack_literals(torch.from_numpy(block).to(dev))
-    operands = (prog["lit_idx"], prog["last"], prog["mask_pos"], prog["mask_neg"], packed)
+    program = prog["popcount"]
     before = tp_kernel.launches
-    got = tp_kernel.tm_popcount(*operands, clause_end=prog["clause_end"],
-                                n_clauses=prog["n_clauses"],
-                                clause_masks=prog["clause_masks"])
+    got = tp_kernel.tm_popcount(program, packed)
     torch.cuda.synchronize()
     assert tp_kernel.launches == before + 2
-    plain = tp_kernel.tm_popcount_plain(*operands)
+    plain = tp_kernel.tm_popcount_plain(*program[:4], packed)
     torch.testing.assert_close(got, plain, rtol=0, atol=0)
     np.testing.assert_array_equal(got[:M, : x.shape[0]].T.cpu().numpy(), want)
